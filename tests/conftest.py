@@ -5,6 +5,11 @@ import pytest
 from repro.core import Model, ModelCost, TensorType, compose
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips where none is present")
+
+
 class _ToyModel(Model):
     """Parametrizable sim-plane model (no real compute)."""
 

@@ -1,0 +1,188 @@
+"""The port's flash-attention module against the JAX package's.
+
+On the CPU the port's wrapper runs its plain version; the JAX side runs the
+Pallas kernel in interpret mode, as ``tests/test_kernels.py`` does.  Same
+grid as that file (ragged, windowed, causal and rectangular shapes).
+Tolerances: f32 atol 2e-5, bf16 3e-2 (the JAX grid's own).  The CUDA
+kernel itself is held against the plain version on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.kernel import flash_attention as j_flash
+from repro.kernels.flash_attention.ops import mha as j_mha
+from repro.kernels.flash_attention.ref import attention_ref as j_ref
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.ops import mha
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.nn import layers as tl
+
+GRID = [
+    ((2, 128, 128, 64), False, None, 64, 64),
+    ((2, 256, 256, 32), True, None, 64, 128),
+    ((1, 200, 200, 16), True, 64, 64, 64),      # ragged + sliding window
+    ((1, 64, 256, 64), False, None, 32, 64),    # cross-attention shape
+    ((2, 100, 300, 8), False, 128, 32, 128),
+]
+DTYPES = {"f32": (np.float32, jnp.float32, torch.float32, 2e-5),
+          "bf16": (np.float32, jnp.bfloat16, torch.bfloat16, 3e-2)}
+
+
+def _inputs(shape, jdt, tdt, seed=0):
+    bh, sq, sk, d = shape
+    r = np.random.default_rng(seed)
+    arrs = [r.standard_normal((bh, n, d)).astype(np.float32)
+            for n in (sq, sk, sk)]
+    j = [jnp.asarray(a, jdt) for a in arrs]
+    # identical values on both sides: bf16 inputs are rounded once, by JAX
+    t = [torch.from_numpy(np.array(x, np.float32)).to(tdt) for x in j]
+    return j, t
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("shape,causal,window,bq,bk", GRID)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_matches_jax(shape, causal, window, bq, bk, dtype):
+    _, jdt, tdt, atol = DTYPES[dtype]
+    (jq, jk, jv), (tq, tk, tv) = _inputs(shape, jdt, tdt)
+    want_kernel = j_flash(jq, jk, jv, causal=causal, window=window,
+                          block_q=bq, block_k=bk)
+    want_ref = j_ref(jq, jk, jv, causal=causal, window=window)
+    got = flash_attention(tq, tk, tv, causal=causal, window=window)
+    got_ref = attention_ref(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tdt and got.shape == tq.shape
+    for want in (want_kernel, want_ref):
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=atol, rtol=atol)
+        np.testing.assert_allclose(_f32(got_ref), _f32(want), atol=atol,
+                                   rtol=atol)
+
+
+def test_fully_masked_rows_give_zero():
+    """Window 1 + causal on a rectangular shape leaves rows with no key:
+    they output 0, like the TPU kernel."""
+    r = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(r.standard_normal((1, n, 8)).astype(np.float32))
+               for n in (6, 3, 3))
+    out = flash_attention(q, k, v, causal=True, window=1)
+    want = j_ref(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                 causal=True, window=1)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=2e-5)
+    assert torch.all(out[0, 3:] == 0)
+
+
+@pytest.mark.parametrize("heads,causal", [((8, 2), True), ((4, 4), False),
+                                          ((6, 3), False)])
+def test_mha_matches_jax(heads, causal):
+    hq, hkv = heads
+    r = np.random.default_rng(2)
+    q = r.standard_normal((2, 64, hq, 32)).astype(np.float32)
+    k = r.standard_normal((2, 64, hkv, 32)).astype(np.float32)
+    v = r.standard_normal((2, 64, hkv, 32)).astype(np.float32)
+    got = mha(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    want = j_mha(*map(jnp.asarray, (q, k, v)), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    # the plain version on the [B*H, S, D] view, kv heads expanded
+    def heads(x):
+        x = torch.from_numpy(x).repeat_interleave(hq // x.shape[2], dim=2)
+        return x.permute(0, 2, 1, 3).reshape(-1, x.shape[1], x.shape[3])
+    plain = attention_ref(heads(q), heads(k), heads(v), causal=causal)
+    plain = plain.reshape(2, hq, 64, 32).permute(0, 2, 1, 3)
+    np.testing.assert_allclose(plain.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("kw,routed", [
+    (dict(), True),
+    (dict(causal=True), False),
+    (dict(window=4), False),
+    (dict(q_offset=2), False),
+    (dict(softmax_scale=0.5), False),
+    (dict(mask="zeros"), False),
+], ids=["joint", "causal", "window", "offset", "scale", "mask"])
+def test_gqa_attention_flash_route_conditions(monkeypatch, kw, routed):
+    calls = []
+
+    def spy(q, k, v, **k_):
+        calls.append(q.shape)
+        return mha(q, k, v, **k_)
+
+    monkeypatch.setattr("repro_torch.kernels.flash_attention.ops.mha", spy)
+    x = torch.randn(1, 8, 2, 16, generator=torch.Generator().manual_seed(0))
+    if kw.get("mask") == "zeros":
+        kw = dict(mask=torch.zeros(1, 1, 8, 8))
+    tl.gqa_attention(x, x, x, **kw)
+    assert bool(calls) == routed
+    # the rectangular and the long (> 8192) square cases stay plain too
+    calls.clear()
+    tl.gqa_attention(x[:, :4], x, x)
+    assert not calls
+
+
+def test_flash_route_flag(monkeypatch):
+    calls = []
+    monkeypatch.setattr("repro_torch.kernels.flash_attention.ops.mha",
+                        lambda *a, **k: calls.append(1))
+    x = torch.randn(1, 8, 2, 16)
+    prev = tl.set_flash_attention(False)
+    try:
+        tl.gqa_attention(x, x, x)
+        assert not calls
+        tl.set_flash_attention(True)
+        tl.gqa_attention(x, x, x)
+        assert calls == [1]
+    finally:
+        tl.set_flash_attention(prev)
+
+
+def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
+    before = flash_attention.launches
+    x = torch.randn(2, 16, 16)
+    out = flash_attention(x, x, x)
+    torch.testing.assert_close(out, attention_ref(x, x, x), rtol=0, atol=0)
+    assert flash_attention.launches == before
+
+
+def test_non_cpu_tensor_launches_or_raises_never_falls_back(monkeypatch):
+    """A tensor that is not on the CPU never reaches the plain version:
+    the wrapper checks it, builds and launches the kernel, or raises."""
+    plain_calls = []
+    monkeypatch.setattr(fa_kernel, "attention_ref",
+                        lambda *a, **k: plain_calls.append(1))
+    x = torch.empty(2, 16, 16, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention(x, x, x)
+    # with the tensor checks passed (as for a real CUDA tensor), a missing
+    # kernel build raises instead of running the plain version
+    monkeypatch.setattr(fa_kernel, "_check", lambda *a: None)
+
+    def no_kernel():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(fa_kernel, "_kernel", no_kernel)
+    before = flash_attention.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        flash_attention(x, x, x)
+    assert plain_calls == [] and flash_attention.launches == before
+
+
+@pytest.mark.parametrize("d,ok", [(64, True), (1024, True), (48, False),
+                                  (128, False)])
+def test_kernel_checks_head_dim(monkeypatch, d, ok):
+    """The wrapper raises on a head dim the kernel has no tile shape for."""
+    x = torch.empty(1, 4, d, device="meta")
+    monkeypatch.setattr(torch.Tensor, "is_contiguous", lambda self: True)
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    if ok:
+        fa_kernel._check(x, x, x)
+    else:
+        with pytest.raises(ValueError, match="head dim"):
+            fa_kernel._check(x, x, x)

@@ -1,0 +1,66 @@
+"""The port imports neither JAX nor anything of the JAX package: every
+module on its main path imports in a fresh interpreter in which importing
+``jax`` or ``repro`` raises."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+MODULES = [
+    "repro_torch",
+    "repro_torch.core",
+    "repro_torch.core.executor",
+    "repro_torch.core.runtime",
+    "repro_torch.core.registry",
+    "repro_torch.sim.metrics",
+    "repro_torch.nn.layers",
+    "repro_torch.kernels.build",
+    "repro_torch.kernels.flash_attention.kernel",
+    "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.diffusion",
+    "repro_torch.diffusion.ops",
+    "repro_torch.diffusion.workflows",
+    "repro_torch.weights",
+]
+
+_PROBE = """
+import importlib, sys
+
+class Blocked:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Blocked())
+for m in sys.argv[1:]:
+    importlib.import_module(m)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("ok")
+"""
+
+
+def _src():
+    return os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+
+
+@pytest.mark.parametrize("modules", [MODULES], ids=["main-path"])
+def test_port_imports_without_jax_or_repro(modules):
+    env = dict(os.environ, PYTHONPATH=_src())
+    out = subprocess.run([sys.executable, "-c", _PROBE, *modules], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_probe_blocks_the_jax_package():
+    """The probe itself works: importing ``repro`` under it fails."""
+    env = dict(os.environ, PYTHONPATH=_src())
+    out = subprocess.run([sys.executable, "-c", _PROBE, "repro.core"], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "blocked" in out.stderr

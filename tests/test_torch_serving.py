@@ -1,0 +1,148 @@
+"""The toy ``sd3:basic`` request served end to end through the port's
+``ServingSystem`` on the CPU, against the same request through the JAX
+package's, on converted weights and the JAX package's latents.
+Tolerance: 1e-4 relative (L2 norm of the image difference over the norm
+of the JAX image): five denoising steps of f32 forwards whose sums run in
+another order in each framework.
+
+Also: fused ``DenoiseSegment`` execution equals the unfused per-step
+chain bit for bit inside the port (mirrors ``tests/test_segments.py``),
+and the backend refuses to run on a card that is not there."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import repro.core as jcore
+import repro.diffusion as jdiff
+import repro_torch.core as tcore
+import repro_torch.diffusion as tdiff
+from repro_torch.core.passes import (
+    AsyncLoRAPass,
+    InlineTrivialPass,
+    JitCompilePass,
+)
+from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.weights import from_numpy
+
+REQUESTS = [{"seed": 0, "prompt": "a fox"},
+            {"seed": 1, "prompt": "two foxes in the snow"}]
+UNFUSED = [InlineTrivialPass(), AsyncLoRAPass(), JitCompilePass()]
+
+
+def rel_err(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _images(system, reqs):
+    assert all(r.status == "done" for r in reqs)
+    return [system.coordinator.engine.value_of(
+        r.ref_key(r.graph.outputs["image"])) for r in reqs]
+
+
+def _serve_jax(family_name, steps):
+    system = jcore.ServingSystem(n_executors=2, backend=jcore.LocalBackend())
+    system.register(jdiff.make_basic_workflow(family_name))
+    reqs = [system.submit(f"{family_name}:basic", inputs=dict(inp),
+                          arrival=0.0, steps=steps) for inp in REQUESTS]
+    system.run()
+    return [np.asarray(x) for x in _images(system, reqs)]
+
+
+def _port_modelset_from_jax(family_name):
+    """A port ModelSet carrying the JAX package's weights and latents."""
+    jms = jdiff.ModelSet(jdiff.FAMILIES[family_name])
+    ms = tdiff.ModelSet(tdiff.FAMILIES[family_name])
+    for name in ("text_enc", "backbone", "vae_dec"):
+        params = getattr(jms, name).load()["params"]
+        getattr(ms, name).weights = from_numpy(jax.tree.map(np.asarray, params))
+    cfg = ms.family.toy
+    shape = (1, cfg.latent_size, cfg.latent_size, cfg.latent_channels)
+    ms.latents.source = lambda seed: torch.from_numpy(np.array(
+        jax.random.normal(jax.random.PRNGKey(seed), shape)))
+    return ms
+
+
+def _serve_port(ms, steps, fused=True, segment_chunk=None):
+    system = tcore.ServingSystem(
+        n_executors=2, backend=tcore.LocalBackend(device="cpu"))
+    if not fused:
+        system.registry.compiler = tcore.GraphCompiler(list(UNFUSED))
+    if segment_chunk is not None:
+        system.coordinator.scheduler = tcore.Scheduler(
+            system.profiles, use_declared_max_batch=True,
+            segment_chunk=segment_chunk)
+    wf = tdiff.make_basic_workflow(ms.family.name, ms=ms)
+    system.register(wf)
+    reqs = [system.submit(wf.name, inputs=dict(inp), arrival=0.0, steps=steps)
+            for inp in REQUESTS]
+    system.run()
+    return _images(system, reqs), system
+
+
+@pytest.mark.parametrize("family_name", ["sd3", "flux-schnell"])
+def test_served_image_matches_jax(family_name):
+    want = _serve_jax(family_name, steps=5)
+    got, system = _serve_port(_port_modelset_from_jax(family_name), steps=5)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        assert g.device.type == "cpu"
+        assert rel_err(g.numpy(), w) < 1e-4
+    # the denoise chain ran as fused segments
+    assert any(m.startswith("segment:") for m, _ in
+               system.coordinator.backend.forward_log)
+
+
+@pytest.mark.parametrize("family_name", ["sd3", "flux-schnell"])
+def test_segment_parity_bitexact(family_name):
+    """steps=5 puts non-dyadic dt values on the schedule."""
+    ms = tdiff.ModelSet(tdiff.FAMILIES[family_name])
+    unfused, _ = _serve_port(ms, steps=5, fused=False)
+    full, _ = _serve_port(ms, steps=5)
+    chunk4, sys_c4 = _serve_port(ms, steps=5, segment_chunk=4)
+    for got in (full, chunk4):
+        for g, w in zip(got, unfused):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    chunks = {}
+    for d in sys_c4.coordinator.dispatch_log:
+        if d.model_id.startswith("segment:"):
+            for rn in d.nodes:
+                chunks.setdefault(rn.uid, []).append(d.segment_steps)
+    assert chunks and all(c == [4, 1] for c in chunks.values()), chunks
+
+
+def test_cpu_run_launches_no_kernel_and_is_seeded():
+    before = flash_attention.launches
+    a, _ = _serve_port(tdiff.ModelSet(tdiff.SD3), steps=2)
+    b, _ = _serve_port(tdiff.ModelSet(tdiff.SD3), steps=2)
+    assert flash_attention.launches == before
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+        assert tuple(x.shape) == (1, 128, 128, 3)
+        assert bool(torch.isfinite(x).all()) and float(x.abs().max()) <= 1.0
+    assert not torch.equal(a[0], a[1])      # different seeds and prompts
+
+
+def test_local_backend_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default backend is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcore.LocalBackend()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcore.LocalBackend(device="cuda:0")
+    assert tcore.LocalBackend(device="cpu").device == torch.device("cpu")
+
+
+def test_overlap_is_refused_until_ported(monkeypatch):
+    assert not tdiff.ops.VAEDecode(tdiff.SD3).overlappable
+    with pytest.raises(NotImplementedError, match="REPRO_OVERLAP"):
+        tcore.ServingSystem(n_executors=1, overlap=True,
+                            backend=tcore.LocalBackend(device="cpu"))
+    from repro_torch.core import runtime
+    monkeypatch.setattr(runtime, "_overlap_enabled", True)
+    with pytest.raises(NotImplementedError, match="REPRO_OVERLAP"):
+        tcore.ServingSystem(n_executors=1,
+                            backend=tcore.LocalBackend(device="cpu"))
