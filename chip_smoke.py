@@ -5,46 +5,91 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failed check raises, and the script exits non-zero):
 
-1. Card: name and power limit, versions, and the build of the CUDA kernel
-   from the checkout's sources (``nvcc`` into ``build/``).
-2. Each kernel against its plain PyTorch version on the card: the JAX
-   package's kernel grid (f32 atol 2e-5, bf16 3e-2) and the full-width path
-   shapes at f32 (atol 2e-5: both sides compute in f32 FMA and differ only
-   in the order of their sums; TF32 is off).
-3. The toy ``sd3:basic`` request served once on ``device="cuda"`` and once on
-   ``device="cpu"`` with the same weights and latents: the images agree
+1. Card: name and power limit, versions, and the build of every CUDA
+   kernel from the checkout's sources (one ``nvcc`` per source, all started
+   together, into ``build/``), with ptxas's registers and spills.
+2. Each kernel against its plain PyTorch version on the card.  Flash
+   attention: the JAX package's kernel grid (f32 atol 2e-5, bf16 3e-2) and
+   the full-width path shapes at f32 (atol 2e-5: both sides compute in f32
+   FMA and differ only in the order of their sums; TF32 is off).  The LoRA
+   kernels: the JAX package's grids (``tests/test_kernels.py``, f32
+   atol = rtol = 1e-4, bf16 1.5e-1; ``tests/test_multilora.py``, f32 1e-4,
+   with idx = -1 rows and G*r up to 160) and the three full-width path
+   shapes in the path's types at atol 2e-5 * sqrt(K/64) (the f32 sums come
+   in another order, and their rounding grows with the depth K).  A row
+   with idx = -1 must give the same bits as when the whole batch has
+   idx = -1.
+3. Toy size, card against CPU on the same weights and latents: one
+   ``sd3:basic`` request, and the three-tenant mix (two LoRA tenants and
+   one basic request, 3 steps) on the multilora scheduler.  Images agree
    within 1e-4 relative (L2 norm), the bound the CPU tests hold the port to
-   against the JAX package.
-4. The main path: ``ServingSystem(n_executors=1,
-   backend=LocalBackend(device="cuda"))`` serving 2 ``sd3:basic`` requests at full SD3 MMDiT width (random weights
-   from fixed seeds, 4 denoising steps).  The kernel launch counts are set to
-   0 just before it and read just after: the flash-attention kernel must have
-   run 24 times per step of every backbone batch plus twice per text-encoder
-   batch.  Images must be (1, 1024, 1024, 3), finite, within [-1, 1].
-5. The kernel at the exact shapes the main path gave it, held against the
-   plain version and timed (CUDA events, median after warm-up) beside the
-   plain version, ``torch.nn.functional.scaled_dot_product_attention`` (a
-   yardstick the port never calls) and the bound.  The ``kernels`` line
-   leads with the largest shape the main path launched; the others, and
-   the single-request backbone shape, follow under ``other_shapes``.
-6. Where the time goes: the same two requests served again on the warm
-   system under ``torch.profiler``; device time by kernel, the attention
-   kernel's share of it, and the card's idle share of the wall time.
+   against the JAX package; on the card the grouped images agree with each
+   tenant's folded solo run within 2e-4 max-abs (``PARITY_TOL`` of the JAX
+   package's test).
+4. The basic path: ``ServingSystem(n_executors=1,
+   backend=LocalBackend(device="cuda"))`` serving 2 ``sd3:basic`` requests
+   at full SD3 MMDiT width (random weights from fixed seeds, 4 denoising
+   steps).  The kernel launch counts are set to 0 just before it and read
+   just after: flash attention must have run 24 times per step of every
+   backbone batch plus twice per text-encoder batch.  Images must be
+   (1, 1024, 1024, 3), finite, within [-1, 1].
+5. Flash attention at the exact shapes the basic path gave it, held against
+   the plain version and timed (CUDA events, median of 10 after 2 warm-ups)
+   beside the plain version, ``scaled_dot_product_attention`` (a yardstick
+   the port never calls) and the bound.
+6. Where the time goes on the basic path: its two requests served again on
+   the warm system under ``torch.profiler``; device time by kernel, the
+   attention kernel's share, and the card's idle share of the wall time.
+4b. The LoRA path: sd3:lora:tenantA, sd3:lora:tenantB and sd3:basic served
+   together at full width, 4 steps, on one card with the multilora
+   scheduler and the passes of the JAX package's multi-tenant test
+   (``InlineTrivialPass``, ``SegmentFusionPass``, ``JitCompilePass``).
+   ``AsyncLoRAPass`` is left out: its fold-in point depends on measured
+   seconds, so the batch would not be deterministic with it.  Counts are
+   set to 0 just before and read just after: the grouped kernel must have
+   run 96 times per step (24 layers x q/k/v/o) of every multilora segment
+   dispatch, flash attention as in phase 4.  The tenants' images differ;
+   the basic request that rode the mixed batch agrees with the same
+   request served alone within 1e-4 relative.  Tenant A agrees with its
+   folded solo run within ``TENANT_FOLD_REL`` relative, a bound looser than
+   the toy one because at full width the fold rounds W + dW to bf16; two
+   controls, tenant A's inputs served alone without an adapter and with
+   tenant B's, must both lie above that bound, so a dropped or swapped
+   adapter fails the gate.
+4c. One direct ``TextEncoder.execute_batch_multilora`` call at full width
+   (three prompts, two text adapters on the last layer's ``wo``) against
+   each adapter folded in and run alone: 1e-4 relative.
+5b. Each LoRA kernel timed at its path shapes (as phase 5) beside its
+   plain version, the bound, and the composite of cuBLAS calls that
+   computes the same function (no single PyTorch call does; the port never
+   calls it).  A served row count other than phase 2's is first held
+   against the plain version there, as in phase 2.
+6b. Where the time goes on the LoRA path: the mixed batch again under the
+   profiler; the grouped kernel's share of device time and the idle share.
+5c. Flash attention at each shape the LoRA path gave it that phase 5 did
+   not cover (the three-request batch), held against the plain version
+   (f32 atol 2e-5) and timed as in phase 5.
 
-The line before the last is the card's name and power limit as nvidia-smi
-prints them; the last line is the JSON result.  Without a CUDA device, or
-without the repository beside it, the script exits non-zero and prints no
-result.
+Before the last two lines, one JSON ``kernels`` line lists every kernel: its
+``launches`` are the count from its own path's run (the single-adapter
+kernel has no serving path: 0), and each leads with the largest shape its
+path launched, the others under ``other_shapes``.  The line before the last
+is the card's name and power limit as nvidia-smi prints them; the last line
+is the JSON result.  Without a CUDA device, or without the repository beside
+it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -61,9 +106,27 @@ GRID = [  # (BH, Sq, Sk, D), causal, window — tests/test_kernels.py's grid
     ((1, 64, 256, 64), False, None),
     ((2, 100, 300, 8), False, 128),
 ]
+# (M, K, N, r): tests/test_kernels.py's LoRA grid, then the edge shapes of
+# tests/test_multilora.py; (G, r) of its grouped grid at M=11, K=48, N=56,
+# plus G*r = 160, the largest its property sweep draws
+LORA_GRID = [(128, 128, 128, 8), (200, 96, 160, 16), (64, 256, 512, 4),
+             (300, 300, 300, 32)]
+LORA_EDGE = [(1, 8, 8, 1), (5, 24, 40, 3), (33, 128, 96, 8),
+             (128, 100, 200, 64)]
+LORA_GROUPED = [(1, 4), (3, 8), (4, 1), (5, 32)]
 STEPS = 4
 REQUESTS = [{"seed": 42, "prompt": "a watercolor fox in a snowy forest"},
             {"seed": 7, "prompt": "a lighthouse on a cliff at dusk, oil paint"}]
+MIXED = [("sd3:lora:tenantA", {"seed": 42, "prompt": "a watercolor fox in a snowy forest"}),
+         ("sd3:lora:tenantB", {"seed": 7, "prompt": "a lighthouse on a cliff at dusk, oil paint"}),
+         ("sd3:basic", {"seed": 11, "prompt": "a red tram crossing a bridge in the rain"})]
+TOY_MIXED = [("sd3:lora:tenantA", 3), ("sd3:lora:tenantB", 3), ("sd3:basic", 3)]
+TARGETS = 4                    # q, k, v, o of the image stream
+# tenant A in the mixed batch against its folded solo run, relative: above
+# the fold's bf16 rounding (3.8e-3 on an H100), below what a dropped or
+# swapped adapter gives (phase 4b reads both controls)
+TENANT_FOLD_REL = 1e-2
+LIBRARY = "cuBLAS composite: x @ W.float() + ((x @ A_cat.float()) * mask) @ B_cat.float()"
 
 
 def log(*a):
@@ -94,17 +157,22 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def attention_bound_ms(bh, sq, sk, d, dtype_name) -> tuple:
-    """Least time for one attention call: each of q, k, v read once and o
-    written once, against 4*BH*Sq*Sk*D operations at the peak for the
-    inputs' type.  Returns (ms, "bytes" | "operations")."""
-    elem = 4 if dtype_name == "float32" else 2
-    nbytes = elem * bh * d * (2 * sq + 2 * sk)
-    flops = 4.0 * bh * sq * sk * d
+def bound(nbytes: float, flops: float, dtype_name: str) -> tuple:
+    """(ms, "bytes" | "operations"): the larger of the bytes over the
+    memory rate and the operations over the peak rate for their type."""
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype_name]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_bound_ms(bh, sq, sk, d, dtype_name) -> tuple:
+    """Least time for one attention call: each of q, k, v read once and o
+    written once, against 4*BH*Sq*Sk*D operations at the peak for the
+    inputs' type."""
+    elem = 4 if dtype_name == "float32" else 2
+    return bound(elem * bh * d * (2 * sq + 2 * sk), 4.0 * bh * sq * sk * d,
+                 dtype_name)
 
 
 def attention_inputs(torch, shape, dtype, seed=0):
@@ -131,34 +199,141 @@ def time_attention(torch, fa, shape, dtype, reps=10) -> dict:
 
     q, k, v = attention_inputs(torch, shape, dtype, seed=1)
     dname = str(dtype).replace("torch.", "")
-    bound, bound_by = attention_bound_ms(*shape, dname)
-    out = {
+    bound_ms, bound_by = attention_bound_ms(*shape, dname)
+    return {
         "shape": "BH=%d,Sq=%d,Sk=%d,D=%d,%s" % (*shape, dname),
         "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v), reps),
         "plain_ms": cuda_ms(torch, lambda: fa.attention_ref(q, k, v), reps),
         "library_ms": cuda_ms(
             torch, lambda: F.scaled_dot_product_attention(q, k, v), reps),
-        "bound_ms": bound,
+        "bound_ms": bound_ms,
         "bound_by": bound_by,
     }
-    return out
 
 
-def profile_path(torch, system, card) -> dict:
-    """Serve the main path's requests again (weights loaded) under the
-    profiler; device time by kernel and the idle share of the window."""
+# ------------------------------------------------------------------ LoRA
+
+def lora_inputs(torch, m, k, n, cols, types, seed=0):
+    """x [m, k], W [k, n] / sqrt(k), A_cat [k, cols] / sqrt(k), B_cat
+    [cols, n], drawn in f32 on the card and cast to (x, W, factors)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(shape, dtype, div=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") / div).to(dtype)
+
+    return (draw((m, k), types[0]), draw((k, n), types[1], math.sqrt(k)),
+            draw((k, cols), types[2], math.sqrt(k)), draw((cols, n), types[2]))
+
+
+def path_idx(torch, groups, rows_per_group):
+    """The path's row order: each request's rows in turn (adapter 0, 1,
+    none), cond rows then the CFG-null rows."""
+    idx = [g for g in groups for _ in range(rows_per_group)]
+    return torch.tensor(idx, dtype=torch.int32, device="cuda")
+
+
+def cycle_idx(torch, m, g):
+    return torch.tensor([(i % (g + 1)) - 1 for i in range(m)],
+                        dtype=torch.int32, device="cuda")
+
+
+def close_or_raise(what, out, want, atol, rtol) -> float:
+    diff = (out.float() - want.float()).abs()
+    err = float(diff.max())
+    if not bool((diff <= atol + rtol * want.float().abs()).all()):
+        raise AssertionError(f"{what}: max |err| {err} over atol {atol}, "
+                             f"rtol {rtol}")
+    return err
+
+
+def check_lora_single(torch, lk, lref, shape, types, scale, atol, rtol):
+    m, k, n, r = shape
+    x, w, a, b = lora_inputs(torch, m, k, n, r, types)
+    out = lk.lora_matmul(x, w, a, b, scale=scale)
+    torch.cuda.synchronize()
+    return close_or_raise(f"lora_matmul {shape} {types}", out,
+                          lref.lora_matmul_ref(x, w, a, b, scale=scale),
+                          atol, rtol)
+
+
+def check_lora_grouped(torch, lk, lref, shape, types, idx, atol, rtol):
+    m, k, n, g, r = shape
+    x, w, a, b = lora_inputs(torch, m, k, n, g * r, types)
+    scales = torch.tensor([0.5 + 0.25 * i for i in range(g)], device="cuda")
+    out = lk.lora_matmul_grouped(x, w, a, b, idx, scales)
+    torch.cuda.synchronize()
+    return close_or_raise(
+        f"lora_matmul_grouped {shape} {types}", out,
+        lref.lora_matmul_masked_ref(x, w, a, b, idx, scales), atol, rtol)
+
+
+def lora_bound_ms(m, k, n, g, r, rows_with_adapter, types, grouped) -> tuple:
+    """Each input read once and the output written once, against the
+    operations this run's rows need: x @ W for every row, and x @ A,
+    (x A) @ B over r rank columns for each row that carries an adapter.
+    The products' type is the promotion of x's and W's."""
+    size = {"torch.float32": 4, "torch.bfloat16": 2}
+    xb, wb, fb = (size[str(t)] for t in types)
+    nbytes = (m * k * xb + k * n * wb + (k + n) * g * r * fb + m * n * xb
+              + (m * 4 + g * 4 if grouped else 0))
+    flops = 2.0 * m * k * n + 2.0 * rows_with_adapter * r * (k + n)
+    f32 = "torch.float32" in (str(types[0]), str(types[1]))
+    return bound(nbytes, flops, "float32" if f32 else "bfloat16")
+
+
+def time_lora(torch, lk, lref, spec, reps=10) -> dict:
+    """One LoRA kernel at one path shape: the kernel, its plain version and
+    the cuBLAS composite that computes the same function, beside the
+    bound.  ``spec``: (grouped, M, K, N, G, r, types, idx groups)."""
+    grouped, m, k, n, g, r, types, groups = spec
+    x, w, a, b = lora_inputs(torch, m, k, n, g * r, types, seed=1)
+    tname = "/".join(str(t).replace("torch.", "") for t in types)
+    if grouped:
+        idx = path_idx(torch, groups, m // len(groups))
+        scales = torch.tensor([0.5 + 0.25 * i for i in range(g)], device="cuda")
+        sel = torch.zeros((m, g), device="cuda")
+        has = idx >= 0
+        sel[has, idx[has].long()] = scales[idx[has].long()]
+        mask = sel.repeat_interleave(r, dim=1)
+        rows = int(has.sum())
+        kern = lambda: lk.lora_matmul_grouped(x, w, a, b, idx, scales)
+        plain = lambda: lref.lora_matmul_masked_ref(x, w, a, b, idx, scales)
+        lib = lambda: (x @ w.float()).add_(((x @ a.float()) * mask) @ b.float())
+        label = "M=%d,K=%d,N=%d,G=%d,r=%d,%s" % (m, k, n, g, r, tname)
+    else:
+        rows = m
+        kern = lambda: lk.lora_matmul(x, w, a, b, scale=0.7)
+        plain = lambda: lref.lora_matmul_ref(x, w, a, b, scale=0.7)
+        lib = lambda: (x @ w.float()).add_(((x @ a.float()) @ b.float()), alpha=0.7)
+        label = "M=%d,K=%d,N=%d,r=%d,%s" % (m, k, n, r, tname)
+    bound_ms, bound_by = lora_bound_ms(m, k, n, g, r, rows, types, grouped)
+    return {"shape": label,
+            "ms": cuda_ms(torch, kern, reps),
+            "plain_ms": cuda_ms(torch, plain, reps),
+            "library_ms": cuda_ms(torch, lib, reps),
+            "library": LIBRARY if grouped else
+            "cuBLAS composite: x @ W.float() + s * (x @ A.float()) @ B.float()",
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+# -------------------------------------------------------------- serving
+
+def profile_path(torch, system, subs, card, label, kernels) -> dict:
+    """Serve ``subs`` again on the warm system under the profiler; device
+    time by kernel, the named kernels' shares and the idle share of the
+    window."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        reqs = [system.submit("sd3:basic", inputs=dict(inp), steps=STEPS)
-                for inp in REQUESTS]
+        reqs = [system.submit(name, inputs=dict(inp), arrival=0.0, steps=STEPS)
+                for name, inp in subs]
         system.run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     if any(r.status != "done" for r in reqs):
-        raise AssertionError("profiled requests did not finish")
+        raise AssertionError(f"profiled {label} requests did not finish")
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", 0) or 0
@@ -166,15 +341,16 @@ def profile_path(torch, system, card) -> dict:
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    flash_ms = sum(r[0] for r in rows if "flash_fwd_kernel" in r[2])
-    out = {"window": f"2 requests x {STEPS} steps, weights loaded",
+    out = {"window": f"{label}: {len(subs)} requests x {STEPS} steps, "
+                     f"weights loaded",
            "wall_ms": wall_ms,
            "device_busy_ms": busy_ms if rows else "not measured",
-           "idle_share": 1 - busy_ms / wall_ms if rows else "not measured",
-           "flash_attention_share_of_busy": flash_ms / busy_ms if rows else
-           "not measured",
-           "top_kernels": [{"ms": ms, "count": n, "name": name[:90]}
-                           for ms, n, name in rows[:8]]}
+           "idle_share": 1 - busy_ms / wall_ms if rows else "not measured"}
+    for name, key in kernels.items():
+        ms = sum(r[0] for r in rows if key in r[2])
+        out[f"{name}_share_of_busy"] = ms / busy_ms if rows else "not measured"
+    out["top_kernels"] = [{"ms": ms, "count": n, "name": name[:90]}
+                          for ms, n, name in rows[:8]]
     log(f"[profile] {json.dumps(out)}  [{card}]")
     return out
 
@@ -182,6 +358,84 @@ def profile_path(torch, system, card) -> dict:
 def image_of(system, req):
     return system.coordinator.engine.value_of(
         req.ref_key(req.graph.outputs["image"]))
+
+
+def rel(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def lora_system(ms, device, multilora=True):
+    """The JAX package's multi-tenant serving setup (its test's
+    ``_build_system``) on one executor: sd3:basic and two LoRA tenants.
+    Returns the system and its adapter models by id."""
+    from repro_torch.core import (
+        GraphCompiler,
+        InlineTrivialPass,
+        JitCompilePass,
+        LocalBackend,
+        Scheduler,
+        SegmentFusionPass,
+        ServingSystem,
+        WorkflowRegistry,
+    )
+    from repro_torch.diffusion import make_basic_workflow, make_lora_workflow
+
+    system = ServingSystem(n_executors=1, backend=LocalBackend(device=device))
+    # no AsyncLoRAPass: its fold-in point depends on measured seconds, so
+    # the batch would not be deterministic with it
+    system.registry = WorkflowRegistry(GraphCompiler(
+        [InlineTrivialPass(), SegmentFusionPass(), JitCompilePass()]))
+    system.coordinator.scheduler = Scheduler(
+        system.profiles, use_declared_max_batch=True, multilora=multilora)
+    wfs = [make_basic_workflow("sd3", ms),
+           make_lora_workflow("sd3", "tenantA", ms),
+           make_lora_workflow("sd3", "tenantB", ms)]
+    for wf in wfs:
+        system.register(wf)
+    adapters = {p.model_id: p for wf in wfs
+                for node in wf.instantiate(steps=STEPS).nodes
+                for p in node.op.patches}
+    return system, adapters
+
+
+def serve(system, subs, steps):
+    reqs = [system.submit(name, inputs=dict(inp), arrival=0.0, steps=steps)
+            for name, inp in subs]
+    system.run()
+    for (name, _), req in zip(subs, reqs):
+        if req.status != "done":
+            raise AssertionError(f"{name} request {req.rid}: {req.status}")
+    return reqs
+
+
+def check_image(torch, img, card, what):
+    if (tuple(img.shape) != (1, 1024, 1024, 3) or img.device.type != "cuda"
+            or not bool(torch.isfinite(img).all())
+            or float(img.abs().max()) > 1.0):
+        raise AssertionError(f"full-width image of {what} {tuple(img.shape)} "
+                             f"{img.device} out of spec")
+
+
+def expected_flash(dispatch_log, cfg) -> tuple:
+    """Flash-attention launches the dispatches must have made, and the
+    shapes they gave the kernel."""
+    expected, shapes = 0, set()
+    for d in dispatch_log:
+        n = len(d.nodes)
+        if d.model_id.startswith("segment:"):
+            expected += d.segment_steps * cfg.n_layers
+            shapes.add((2 * n * cfg.n_heads, cfg.tokens, cfg.tokens,
+                        cfg.head_dim))
+        elif d.model_id.startswith("backbone:"):
+            expected += cfg.n_layers
+            shapes.add((2 * n * cfg.n_heads, cfg.tokens, cfg.tokens,
+                        cfg.head_dim))
+        elif d.model_id.startswith("text_encoder:"):
+            expected += 2                      # two layers
+            shapes.add((4 * n, cfg.text_tokens, cfg.text_tokens,
+                        cfg.text_dim // 4))
+    return expected, shapes
 
 
 def main() -> None:
@@ -198,8 +452,12 @@ def main() -> None:
     from repro_torch.diffusion import REAL, SD3, ModelSet, make_basic_workflow
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.lora_matmul import kernel as lk
+    from repro_torch.kernels.lora_matmul import ref as lref
 
     t_start = time.perf_counter()
+    f32, bf16 = torch.float32, torch.bfloat16
+    path_types = (f32, bf16, bf16)
 
     # ---------------------------------------------------------- 1. card
     card = card_line()
@@ -207,26 +465,81 @@ def main() -> None:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+
+    def timed_build(source):
+        t0 = time.perf_counter()
+        return build.build(source), time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    lib = build.build(fa.SOURCE)
-    build_s = time.perf_counter() - t0
-    log(f"[build] {fa.SOURCE.name} in {build_s:.1f} s")
-    lines = lib.with_suffix(".log").read_text().splitlines()
-    for line in dict.fromkeys(l.strip() for l in lines
-                              if "registers" in l or "spill" in l):
-        log(f"[build] {line}")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        built = list(pool.map(timed_build, (fa.SOURCE, lk.SOURCE)))
+    log(f"[build] both sources in {time.perf_counter() - t0:.1f} s")
+    for source, (lib, secs) in zip((fa.SOURCE, lk.SOURCE), built):
+        log(f"[build] {source.name} in {secs:.1f} s")
+        lines = lib.with_suffix(".log").read_text().splitlines()
+        for line in dict.fromkeys(l.strip() for l in lines
+                                  if "registers" in l or "spill" in l):
+            log(f"[build] {source.name}: {line}")
 
     # ------------------------------------------ 2. kernel vs plain version
     for shape, causal, window in GRID:
-        for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+        for dtype, atol in ((f32, 2e-5), (bf16, 3e-2)):
             err = check_attention(torch, fa, shape, causal, window, dtype, atol)
             log(f"[kernel] grid {shape} causal={causal} window={window} "
                 f"{dtype}: max|err| {err:.2e} <= {atol}")
     path_err = 0.0
     for shape in ((48, 4429, 4429, 64), (4, 333, 333, 1024)):
-        err = check_attention(torch, fa, shape, False, None, torch.float32, 2e-5)
+        err = check_attention(torch, fa, shape, False, None, f32, 2e-5)
         path_err = max(path_err, err)
         log(f"[kernel] path {shape} float32: max|err| {err:.2e} <= 2e-05")
+
+    for shape in LORA_GRID:
+        for types, tol in (((f32,) * 3, 1e-4), ((bf16,) * 3, 1.5e-1)):
+            err = check_lora_single(torch, lk, lref, shape, types, 0.7, tol, tol)
+            log(f"[kernel] lora_matmul grid {shape} {types[0]}: max|err| "
+                f"{err:.2e} (atol=rtol={tol})")
+    for shape in LORA_EDGE:
+        err = check_lora_single(torch, lk, lref, shape, (f32,) * 3, 1.3,
+                                1e-4, 1e-4)
+        log(f"[kernel] lora_matmul edge {shape}: max|err| {err:.2e} (1e-4)")
+    for g, r in LORA_GROUPED:
+        for types in ((f32,) * 3, path_types):
+            err = check_lora_grouped(torch, lk, lref, (11, 48, 56, g, r),
+                                     types, cycle_idx(torch, 11, g), 1e-4, 1e-4)
+            log(f"[kernel] lora_matmul_grouped grid G={g} r={r} {types}: "
+                f"max|err| {err:.2e} (1e-4, idx -1..{g - 1})")
+    # the three full-width path shapes: MMDiT grouped (3 requests x CFG 2 x
+    # 4096 tokens; tenant A, tenant B, basic), text encoder grouped (3 x 333
+    # tokens), single adapter at the MMDiT projection shape
+    lora_path_err = {"grouped": 0.0, "single": 0.0}
+    mmdit_groups = [0, 1, -1, 0, 1, -1]
+    for name, shape, types, groups in (
+            ("mmdit", (24576, 1536, 1536, 2, 8), path_types, mmdit_groups),
+            ("text", (999, 4096, 4096, 2, 8), (f32,) * 3, [0, 1, -1])):
+        atol = 2e-5 * math.sqrt(shape[1] / 64)
+        idx = path_idx(torch, groups, shape[0] // len(groups))
+        err = check_lora_grouped(torch, lk, lref, shape, types, idx, atol, 0.0)
+        lora_path_err["grouped"] = max(lora_path_err["grouped"], err)
+        log(f"[kernel] lora_matmul_grouped path {name} {shape}: max|err| "
+            f"{err:.2e} <= {atol:.2e}")
+    atol = 2e-5 * math.sqrt(1536 / 64)
+    err = check_lora_single(torch, lk, lref, (24576, 1536, 1536, 8),
+                            path_types, 0.7, atol, 0.0)
+    lora_path_err["single"] = err
+    log(f"[kernel] lora_matmul path (24576, 1536, 1536, 8): max|err| "
+        f"{err:.2e} <= {atol:.2e}")
+    # a row's base product must not depend on the other rows' adapters
+    x, w, a, b = lora_inputs(torch, 24576, 1536, 1536, 16, path_types)
+    idx = path_idx(torch, mmdit_groups, 4096)
+    scales = torch.tensor([0.5, 0.75], device="cuda")
+    mixed = lk.lora_matmul_grouped(x, w, a, b, idx, scales)
+    none = lk.lora_matmul_grouped(x, w, a, b, torch.full_like(idx, -1), scales)
+    if not torch.equal(mixed[idx < 0], none[idx < 0]):
+        raise AssertionError("lora_matmul_grouped: an idx=-1 row changed with "
+                             "the other rows' adapters")
+    log("[kernel] lora_matmul_grouped: idx=-1 rows bit-identical to an "
+        "all-idx=-1 batch")
+    del x, w, a, b, mixed, none
 
     # -------------------------------------------- 3. toy path, card vs CPU
     cpu_ms = ModelSet(SD3)
@@ -236,7 +549,7 @@ def main() -> None:
     images = {}
     for dev, ms in (("cuda", gpu_ms), ("cpu", cpu_ms)):
         system = ServingSystem(n_executors=1, backend=LocalBackend(device=dev))
-        system.register(make_basic_workflow("sd3", ms=ms))
+        system.register(make_basic_workflow("sd3", ms))
         req = system.submit("sd3:basic", inputs=dict(REQUESTS[0]), steps=STEPS)
         system.run()
         if req.status != "done":
@@ -244,22 +557,54 @@ def main() -> None:
         images[dev] = image_of(system, req)
     if images["cuda"].device.type != "cuda":
         raise AssertionError("toy request on cuda produced a CPU image")
-    a, b = images["cuda"].double().cpu(), images["cpu"].double()
-    toy_rel = float((a - b).norm() / b.norm())
+    toy_rel = rel(images["cuda"], images["cpu"])
     if not toy_rel < 1e-4:
         raise AssertionError(f"toy image card vs CPU: rel err {toy_rel}")
     log(f"[toy] sd3:basic card vs CPU image rel err {toy_rel:.2e} < 1e-4")
 
-    # ------------------------------------------- 4. full-width main path
+    toy_subs = [(n, {"seed": s, "prompt": "parity probe"}) for n, s in TOY_MIXED]
+    mixed_imgs = {}
+    adapter_weights = None
+    for dev, ms in (("cpu", cpu_ms), ("cuda", gpu_ms)):
+        system, adapters = lora_system(ms, dev)
+        if adapter_weights is None:
+            adapter_weights = {mid: p.load("cpu") for mid, p in adapters.items()}
+        for mid, p in adapters.items():
+            p.weights = adapter_weights[mid]
+        reqs = serve(system, toy_subs, 3)
+        if system.coordinator.backend.multilora_forwards <= 0:
+            raise AssertionError(f"toy mix on {dev}: no multilora forward")
+        mixed_imgs[dev] = [image_of(system, r) for r in reqs]
+    for (name, _), got, want in zip(toy_subs, mixed_imgs["cuda"],
+                                    mixed_imgs["cpu"]):
+        e = rel(got, want)
+        if got.device.type != "cuda" or not e < 1e-4:
+            raise AssertionError(f"toy {name} card vs CPU: rel err {e}")
+        log(f"[toy] {name} in the mixed batch, card vs CPU rel err {e:.2e} "
+            f"< 1e-4")
+    for i, (name, inp) in enumerate(toy_subs):
+        system, adapters = lora_system(gpu_ms, "cuda", multilora=False)
+        for mid, p in adapters.items():
+            p.weights = adapter_weights[mid]
+        solo = image_of(system, serve(system, [(name, inp)], 3)[0])
+        d = float((mixed_imgs["cuda"][i] - solo).abs().max())
+        if not d <= 2e-4:
+            raise AssertionError(f"toy {name}: grouped vs folded solo {d}")
+        log(f"[toy] {name} on the card: grouped vs folded solo max|diff| "
+            f"{d:.2e} <= 2e-4")
+
+    # ------------------------------------------- 4. full-width basic path
     family = dataclasses.replace(SD3, toy=REAL["sd3"])
+    cfg = family.toy
     ms = ModelSet(family)
     # one card is one executor: the coordinator's timeline then matches
     # what the card did, and the two requests share its batches
     system = ServingSystem(n_executors=1, backend=LocalBackend(device="cuda"))
-    system.register(make_basic_workflow("sd3", ms=ms))
+    system.register(make_basic_workflow("sd3", ms))
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     fa.flash_attention.launches = 0
+    lk.lora_matmul.launches = lk.lora_matmul_grouped.launches = 0
     t0 = time.perf_counter()
     reqs = [system.submit("sd3:basic", inputs=dict(inp), arrival=0.0,
                           steps=STEPS) for inp in REQUESTS]
@@ -267,75 +612,233 @@ def main() -> None:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = fa.flash_attention.launches
+    lora_on_basic = lk.lora_matmul.launches + lk.lora_matmul_grouped.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    cfg = family.toy
-    expected, path_shapes = 0, set()
-    for d in system.coordinator.dispatch_log:
-        n = len(d.nodes)
-        if d.model_id.startswith("segment:"):
-            expected += d.segment_steps * cfg.n_layers
-            path_shapes.add((2 * n * cfg.n_heads, cfg.tokens, cfg.tokens,
-                             cfg.head_dim))
-        elif d.model_id.startswith("backbone:"):
-            expected += cfg.n_layers
-            path_shapes.add((2 * n * cfg.n_heads, cfg.tokens, cfg.tokens,
-                             cfg.head_dim))
-        elif d.model_id.startswith("text_encoder:"):
-            expected += 2                      # two layers
-            path_shapes.add((4 * n, cfg.text_tokens, cfg.text_tokens,
-                             cfg.text_dim // 4))
+    expected, path_shapes = expected_flash(system.coordinator.dispatch_log, cfg)
     for req in reqs:
         if req.status != "done":
             raise AssertionError(f"full-width request {req.rid}: {req.status}")
         img = image_of(system, req)
-        if (tuple(img.shape) != (1, 1024, 1024, 3) or img.device.type != "cuda"
-                or not bool(torch.isfinite(img).all())
-                or float(img.abs().max()) > 1.0):
-            raise AssertionError(f"full-width image {tuple(img.shape)} "
-                                 f"{img.device} out of spec")
+        check_image(torch, img, card, f"request {req.rid}")
         log(f"[path] request {req.rid} done: latency {req.latency:.3f} s on "
             f"the coordinator's measured timeline; image {tuple(img.shape)} "
             f"range [{float(img.min()):.3f}, {float(img.max()):.3f}]  [{card}]")
     if launches < expected or expected == 0:
         raise AssertionError(f"flash_attention launched {launches} times on "
                              f"the main path, expected >= {expected}")
+    if lora_on_basic:
+        raise AssertionError(f"the basic path launched a LoRA kernel "
+                             f"{lora_on_basic} times")
     log(f"[path] 2 full-width sd3:basic requests, {STEPS} steps, wall "
         f"{wall_s:.2f} s (weights drawn on the card included), peak memory "
         f"{peak_gib:.2f} GiB, flash_attention launches {launches} "
         f"(expected {expected})  [{card}]")
 
-    # --------------------------- 5. the main path's own shapes, timed
+    # --------------------------- 5. the basic path's own shapes, timed
     timings, errs = [], [path_err]
     shapes = sorted(path_shapes | {(48, 4429, 4429, 64), (4, 333, 333, 1024)},
                     key=lambda s: -s[0] * s[1] * s[2] * s[3])
     for shape in shapes:
-        errs.append(check_attention(torch, fa, shape, False, None,
-                                    torch.float32, 2e-5))
-        timings.append(time_attention(torch, fa, shape, torch.float32))
+        errs.append(check_attention(torch, fa, shape, False, None, f32, 2e-5))
+        timings.append(time_attention(torch, fa, shape, f32))
         log(f"[time] {json.dumps(timings[-1])}  [{card}]")
     # ------------------------------------------- 6. where the time goes
-    profile_path(torch, system, card)
+    profile_path(torch, system, [("sd3:basic", inp) for inp in REQUESTS],
+                 card, "sd3:basic", {"flash_attention": "flash_fwd_kernel"})
+    del system, ms, reqs, img
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # the headline is the largest shape the main path really launched
+    # ------------------------------------ 4b. full-width multi-tenant path
+    ms = ModelSet(family)
+    system, adapters = lora_system(ms, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    lk.lora_matmul.launches = lk.lora_matmul_grouped.launches = 0
+    t0 = time.perf_counter()
+    reqs = serve(system, MIXED, STEPS)
+    torch.cuda.synchronize()
+    ml_wall_s = time.perf_counter() - t0
+    ml_flash = fa.flash_attention.launches
+    ml_grouped = lk.lora_matmul_grouped.launches
+    ml_single = lk.lora_matmul.launches
+    ml_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log_ml = system.coordinator.dispatch_log
+    ml_segments = [d for d in log_ml
+                   if d.multilora and d.model_id.startswith("segment:")]
+    if not ml_segments:
+        raise AssertionError("the mixed batch formed no multilora segment "
+                             "dispatch: " + ", ".join(
+                                 f"{d.model_id} x{len(d.nodes)}" for d in log_ml))
+    want_grouped = sum(TARGETS * cfg.n_layers
+                       * (d.segment_steps if d.model_id.startswith("segment:")
+                          else 1) for d in log_ml if d.multilora)
+    if ml_grouped < want_grouped:
+        raise AssertionError(f"lora_matmul_grouped launched {ml_grouped} times "
+                             f"on the LoRA path, expected >= {want_grouped}")
+    if ml_single:
+        raise AssertionError(f"lora_matmul launched {ml_single} times; it has "
+                             f"no serving path")
+    ml_expected_flash, ml_flash_shapes = expected_flash(log_ml, cfg)
+    if ml_flash < ml_expected_flash:
+        raise AssertionError(f"flash_attention launched {ml_flash} times on "
+                             f"the LoRA path, expected >= {ml_expected_flash}")
+    ml_images = {}
+    for (name, _), req in zip(MIXED, reqs):
+        img = image_of(system, req)
+        check_image(torch, img, card, name)
+        ml_images[name] = img
+        log(f"[path-lora] {name} request {req.rid} done: latency "
+            f"{req.latency:.3f} s on the coordinator's measured timeline; "
+            f"range [{float(img.min()):.3f}, {float(img.max()):.3f}]  [{card}]")
+    ab = float((ml_images["sd3:lora:tenantA"]
+                - ml_images["sd3:lora:tenantB"]).abs().max())
+    if not ab > 1e-6:
+        raise AssertionError(f"tenants A and B gave the same image ({ab})")
+    lora_rows = sorted({2 * len(d.nodes) * cfg.image_tokens
+                        for d in ml_segments}, reverse=True)
+    log(f"[path-lora] 3 full-width requests (2 LoRA tenants + basic), "
+        f"{STEPS} steps, wall {ml_wall_s:.2f} s (weights and adapters drawn "
+        f"on the card included), peak memory {ml_peak_gib:.2f} GiB; "
+        f"dispatches {[(d.model_id, len(d.nodes), d.segment_steps, d.multilora) for d in log_ml]}; "
+        f"lora_matmul_grouped launches {ml_grouped} (expected {want_grouped}) "
+        f"at M = {lora_rows}; flash_attention launches {ml_flash} (expected "
+        f"{ml_expected_flash})  [{card}]")
+    basic_inp = dict(MIXED[2][1])
+    solo_basic = image_of(system, serve(system, [("sd3:basic", basic_inp)],
+                                        STEPS)[0])
+    e = rel(ml_images["sd3:basic"], solo_basic)
+    if not e < 1e-4:
+        raise AssertionError(f"basic request in the mixed batch vs alone: "
+                             f"rel err {e}")
+    log(f"[path-lora] the basic request in the mixed batch vs served alone: "
+        f"rel err {e:.2e} < 1e-4")
+    # tenant A against its folded solo run, and against its own inputs
+    # served without its adapter (a dropped adapter) and with tenant B's (a
+    # swapped one).  The fold rounds W + dW to bf16, so A differs from its
+    # solo run by more than the toy bound; the gate sits between that
+    # reading and the controls', and the controls must clear it.
+    a_name, a_inp = MIXED[0]
+    a_img = ml_images[a_name]
+    readings = {}
+    for label, name in (("its own adapter folded", a_name),
+                        ("no adapter", "sd3:basic"),
+                        ("tenant B's adapter", "sd3:lora:tenantB")):
+        other = image_of(system, serve(system, [(name, a_inp)], STEPS)[0])
+        readings[label] = rel(a_img, other)
+        log(f"[path-lora] tenant A grouped vs its inputs served alone with "
+            f"{label}: max|diff| {float((a_img - other).abs().max()):.3e}, "
+            f"rel err {readings[label]:.3e}  [{card}]")
+    own = readings["its own adapter folded"]
+    controls = min(readings["no adapter"], readings["tenant B's adapter"])
+    if not own < TENANT_FOLD_REL < controls:
+        raise AssertionError(
+            f"tenant A grouped vs folded solo {own:.3e}, nearest control "
+            f"{controls:.3e}: the gate {TENANT_FOLD_REL} must lie between them")
+    log(f"[path-lora] tenant A grouped vs folded solo rel err {own:.3e} < "
+        f"{TENANT_FOLD_REL} < nearest control {controls:.3e}")
+
+    # --------------------------- 4c. text encoder, grouped vs folded runs
+    backend = system.coordinator.backend
+    enc = ms.text_enc
+    enc_comps, _ = backend.ensure_loaded(enc)
+    ads = [adapters["lora:tenantA:sd3"], adapters["lora:tenantB:sd3"]]
+    pcs = {p.model_id: backend.adapter_pool.get(p)[0] for p in ads}
+    batch = [{"prompt": inp["prompt"], "_patches": ps}
+             for (_, inp), ps in zip(MIXED, ([ads[0]], [ads[1]], []))]
+    lk.lora_matmul_grouped.launches = 0
+    got = enc.execute_batch_multilora(enc_comps, batch, pcs)
+    torch.cuda.synchronize()
+    text_launches = lk.lora_matmul_grouped.launches
+    if got is None or text_launches != 1:
+        raise AssertionError(f"text encoder grouped call: {text_launches} "
+                             f"launches")
+    for kw, out in zip(batch, got):
+        solo = enc_comps
+        for p in kw["_patches"]:
+            solo = enc.fold_patches(enc_comps, [p], [pcs[p.model_id]])
+        want = enc.execute(solo, prompt=kw["prompt"])["prompt_embeds"]
+        e = rel(out["prompt_embeds"], want)
+        if not e < 1e-4:
+            raise AssertionError(f"text encoder grouped vs folded: {e}")
+        log(f"[text-lora] {[p.model_id for p in kw['_patches']]} grouped vs "
+            f"folded: rel err {e:.2e} < 1e-4")
+
+    # ---------------------------------- 5b. the LoRA kernels, timed
+    lora_specs = {"mmdit": (True, 24576, 1536, 1536, 2, 8, path_types,
+                            mmdit_groups),
+                  "text": (True, 999, 4096, 4096, 2, 8, (f32,) * 3, [0, 1, -1]),
+                  "single": (False, 24576, 1536, 1536, 1, 8, path_types, None)}
+    lora_times = {}
+    for key, spec in lora_specs.items():
+        lora_times[key] = time_lora(torch, lk, lref, spec)
+        log(f"[time] {json.dumps(lora_times[key])}  [{card}]")
+    for m in lora_rows:
+        if m != 24576:        # a served batch of another size: check, time
+            groups = mmdit_groups[:m // 4096]
+            atol = 2e-5 * math.sqrt(1536 / 64)
+            err = check_lora_grouped(torch, lk, lref, (m, 1536, 1536, 2, 8),
+                                     path_types, path_idx(torch, groups, 4096),
+                                     atol, 0.0)
+            lora_path_err["grouped"] = max(lora_path_err["grouped"], err)
+            log(f"[kernel] lora_matmul_grouped served M={m}: max|err| "
+                f"{err:.2e} <= {atol:.2e}")
+            spec = (True, m, 1536, 1536, 2, 8, path_types, groups)
+            lora_times[f"mmdit-{m}"] = time_lora(torch, lk, lref, spec)
+            log(f"[time] {json.dumps(lora_times[f'mmdit-{m}'])}  [{card}]")
+
+    # ------------------------------------ 6b. where the time goes, LoRA
+    profile_path(torch, system, MIXED, card, "mixed LoRA batch",
+                 {"lora_matmul_grouped": "lora_matmul_kernel",
+                  "flash_attention": "flash_fwd_kernel"})
+    del (system, ms, adapters, reqs, ml_images, a_img, other, solo_basic, img,
+         backend, enc, enc_comps, pcs, got, solo, want)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -------------- 5c. flash attention at the LoRA path's own shapes
+    ml_timings = []
+    for shape in sorted(ml_flash_shapes - set(shapes),
+                        key=lambda s: -s[0] * s[1] * s[2] * s[3]):
+        err = check_attention(torch, fa, shape, False, None, f32, 2e-5)
+        errs.append(err)
+        log(f"[kernel] LoRA path {shape} float32: max|err| {err:.2e} <= 2e-05")
+        ml_timings.append({**time_attention(torch, fa, shape, f32),
+                           "path": "mixed LoRA batch"})
+        log(f"[time] {json.dumps(ml_timings[-1])}  [{card}]")
+
+    # the headline is the largest shape each path really launched
     served = max(path_shapes, key=lambda s: s[0] * s[1] * s[2] * s[3])
     main = timings[shapes.index(served)]
-    entry = {
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:109",
-        "launches": launches,
-        "max_abs_err": max(errs),
-        "ms": main["ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"],
-        "shape": main["shape"],
-        "other_shapes": [t for t in timings if t is not main],
-    }
+
+    def entry(name, source, replaces, launches, err, lead, others):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": lead["ms"],
+                "plain_ms": lead["plain_ms"], "bound_ms": lead["bound_ms"],
+                "bound_by": lead["bound_by"], "library_ms": lead["library_ms"],
+                **({"library": lead["library"]} if "library" in lead else {}),
+                "shape": lead["shape"], "other_shapes": others}
+
+    lora_src = "src/repro_torch/kernels/lora_matmul/csrc/lora_matmul.cu"
+    lead_key = f"mmdit-{lora_rows[0]}" if lora_rows[0] != 24576 else "mmdit"
+    kernels = [
+        entry("flash_attention",
+              "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention/kernel.py:109", launches,
+              max(errs), main,
+              [t for t in timings if t is not main] + ml_timings),
+        entry("lora_matmul_grouped", lora_src,
+              "src/repro/kernels/lora_matmul/kernel.py:172", ml_grouped,
+              lora_path_err["grouped"], lora_times[lead_key],
+              [t for k, t in lora_times.items() if k not in (lead_key, "single")]),
+        entry("lora_matmul", lora_src,
+              "src/repro/kernels/lora_matmul/kernel.py:133", 0,
+              lora_path_err["single"], lora_times["single"], []),
+    ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """Diffusion substrate, PyTorch port: MMDiT backbone, encoders, sampling,
-servable model wrappers and the basic workflow builder."""
+LoRA adapters, servable model wrappers and the basic and LoRA workflow
+builders."""
 
 from repro_torch.diffusion.config import (
     FAMILIES,
@@ -17,7 +18,12 @@ from repro_torch.diffusion.ops import (
     DenoiseStep,
     DiffusionBackbone,
     LatentsGenerator,
+    LoRAAdapter,
     TextEncoder,
     VAEDecode,
 )
-from repro_torch.diffusion.workflows import ModelSet, make_basic_workflow
+from repro_torch.diffusion.workflows import (
+    ModelSet,
+    make_basic_workflow,
+    make_lora_workflow,
+)

@@ -7,14 +7,14 @@
   mapping the 8x-downsampled latent space back to pixels.  Images and
   latents are NHWC, conv weights HWIO, as in the JAX package.
 
-The LoRA branch of the text encoder and ``vae_encode`` are not ported yet.
+``vae_encode`` is not ported yet.
 """
 
 from __future__ import annotations
 
 import math
 import zlib
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +24,7 @@ from repro_torch.nn.layers import (
     embed_init,
     gelu_mlp,
     gqa_attention,
+    grouped_lora_dense,
     init_mlp,
     qdense,
     rms_norm,
@@ -72,11 +73,18 @@ def init_text_encoder(
 
 
 def text_encoder_apply(params: Params, token_ids: torch.Tensor,
-                       n_heads: int) -> torch.Tensor:
-    """token_ids [B, S] -> embeddings [B, S, d]."""
+                       n_heads: int, lora_stack: Optional[Params] = None,
+                       lora_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """token_ids [B, S] -> embeddings [B, S, d].
+
+    ``lora_stack`` (from :func:`repro_torch.diffusion.lora.stack_text_loras`)
+    plus a per-row ``lora_idx`` [B] run the grouped multi-adapter form of
+    the LAST layer's output projection; rows with ``idx < 0`` stay plain.
+    """
     b, s = token_ids.shape
     x = params["tok"][token_ids] + params["pos"][None, :s]
-    for p in params["layers"]:
+    n_layers = len(params["layers"])
+    for li, p in enumerate(params["layers"]):
         h = rms_norm(x, p["norm1"])
         bb, ss, d = h.shape
         hd = d // n_heads
@@ -84,7 +92,12 @@ def text_encoder_apply(params: Params, token_ids: torch.Tensor,
         k = qdense(h, p["wk"]).reshape(bb, ss, n_heads, hd)
         v = qdense(h, p["wv"]).reshape(bb, ss, n_heads, hd)
         attn = gqa_attention(q, k, v, causal=False).reshape(bb, ss, d)
-        x = x + qdense(attn, p["wo"])
+        if lora_stack is not None and li == n_layers - 1:
+            x = x + grouped_lora_dense(
+                attn, p["wo"], lora_stack["a"], lora_stack["b"],
+                lora_idx.to(torch.int32), lora_stack["scales"])
+        else:
+            x = x + qdense(attn, p["wo"])
         x = x + gelu_mlp(p["mlp"], rms_norm(x, p["norm2"]))
     return rms_norm(x, params["final"])
 

@@ -11,8 +11,9 @@ latents' dtype (f32), projections against bf16 weights compute in f32
 (:func:`~repro_torch.nn.layers.qdense`), and the casts back to
 ``x.dtype`` sit where the JAX package casts.
 
-The ControlNet branch, the grouped multi-LoRA projections and the
-sequence-sharded forward are not ported yet.
+With ``lora_stack``/``lora_idx``, the image-stream q/k/v/o projections
+run the grouped multi-adapter form (:func:`_lora_proj`).  The ControlNet
+branch and the sequence-sharded forward are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from repro_torch.nn.layers import (
     dense_init,
     gelu,
     gqa_attention,
+    grouped_lora_dense,
     modulate,
     qdense,
     rms_norm,
@@ -71,8 +73,21 @@ def init_layer(gen: torch.Generator, cfg: DiTConfig, n: int = 1) -> Params:
     return {"img": _init_stream(gen, cfg, n), "txt": _init_stream(gen, cfg, n)}
 
 
+def _lora_proj(h: torch.Tensor, w: torch.Tensor, lora, target: str
+               ) -> torch.Tensor:
+    """``h @ w``, or the grouped per-row multi-LoRA projection when this
+    layer carries adapter stacks for ``target``.  ``lora`` is
+    ``(layer_stacks, idx, scales)`` with ``layer_stacks[f"{target}_a"]``
+    ``[G, d, r]`` / ``..._b`` ``[G, r, d]``."""
+    if lora is None:
+        return qdense(h, w)
+    stacks, idx, scales = lora
+    return grouped_lora_dense(h, w, stacks[f"{target}_a"],
+                              stacks[f"{target}_b"], idx, scales)
+
+
 def _stream_qkv(p: Params, x: torch.Tensor, t_emb: torch.Tensor,
-                n_heads: int):
+                n_heads: int, lora=None):
     ada = qdense(F.silu(t_emb), p["ada"]) + p["ada_b"]
     (s1, g1, m1, s2, g2, m2) = torch.chunk(ada, 6, dim=-1)
     m1 = 1.0 + m1          # gate baseline: identity-plus-delta
@@ -80,18 +95,18 @@ def _stream_qkv(p: Params, x: torch.Tensor, t_emb: torch.Tensor,
     h = modulate(rms_norm(x, p["norm1"]), s1, g1).to(x.dtype)
     b, s, d = h.shape
     hd = d // n_heads
-    q = qdense(h, p["wq"]).reshape(b, s, n_heads, hd)
-    k = qdense(h, p["wk"]).reshape(b, s, n_heads, hd)
-    v = qdense(h, p["wv"]).reshape(b, s, n_heads, hd)
+    q = _lora_proj(h, p["wq"], lora, "wq").reshape(b, s, n_heads, hd)
+    k = _lora_proj(h, p["wk"], lora, "wk").reshape(b, s, n_heads, hd)
+    v = _lora_proj(h, p["wv"], lora, "wv").reshape(b, s, n_heads, hd)
     return q, k, v, (m1, s2, g2, m2)
 
 
 def _stream_post(p: Params, x: torch.Tensor, attn_out: torch.Tensor, mods,
-                 n_heads: int) -> torch.Tensor:
+                 n_heads: int, lora=None) -> torch.Tensor:
     m1, s2, g2, m2 = mods
     b, s, _, _ = attn_out.shape
     # keep the residual stream in its own dtype (t_emb gates are f32)
-    proj = qdense(attn_out.reshape(b, s, -1), p["wo"])
+    proj = _lora_proj(attn_out.reshape(b, s, -1), p["wo"], lora, "wo")
     x = x + (m1[:, None, :] * proj).to(x.dtype)
     h = modulate(rms_norm(x, p["norm2"]), s2, g2).to(x.dtype)
     x = x + (m2[:, None, :] * qdense(gelu(qdense(h, p["w1"])),
@@ -105,8 +120,9 @@ def mmdit_block(
     c: torch.Tensor,         # text tokens  [B, Tc, d]
     t_emb: torch.Tensor,     # [B, d]
     n_heads: int,
+    lora=None,               # (layer adapter stacks, idx [B], scales [G])
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    qi, ki, vi, mods_i = _stream_qkv(p["img"], x, t_emb, n_heads)
+    qi, ki, vi, mods_i = _stream_qkv(p["img"], x, t_emb, n_heads, lora=lora)
     qt, kt, vt, mods_t = _stream_qkv(p["txt"], c, t_emb, n_heads)
     q = torch.cat([qt, qi], dim=1)
     k = torch.cat([kt, ki], dim=1)
@@ -114,7 +130,7 @@ def mmdit_block(
     out = gqa_attention(q, k, v, causal=False)
     tc = c.shape[1]
     out_t, out_i = out[:, :tc], out[:, tc:]
-    x = _stream_post(p["img"], x, out_i, mods_i, n_heads)
+    x = _stream_post(p["img"], x, out_i, mods_i, n_heads, lora=lora)
     c = _stream_post(p["txt"], c, out_t, mods_t, n_heads)
     return x, c
 
@@ -175,17 +191,30 @@ def mmdit_apply(
     t: torch.Tensor,                          # [B]
     text_emb: torch.Tensor,                   # [B, Tc, text_dim]
     control_residuals: Optional[torch.Tensor] = None,   # [L, B, Ti, d]
+    lora_stack: Optional[Params] = None,      # stack_loras output ([L,G,...])
+    lora_idx: Optional[torch.Tensor] = None,  # [B] int32; -1 = no adapter
 ) -> torch.Tensor:
     """One denoising forward pass; returns the velocity prediction.
+
+    When ``lora_stack``/``lora_idx`` are given, the image-stream attention
+    projections run the grouped multi-adapter form: each batch row applies
+    its own LoRA (``lora_idx[b]``) against the shared base weights.  Layer
+    ``i`` of the loop takes layer ``i`` of each ``[L, G, ...]`` stack, as
+    the JAX package's layer scan takes it from its ``xs``.
 
     Absent ControlNet residuals are skipped, not materialized: the JAX
     package adds an all-zero ``[L, B, Ti, d]`` stack (about 1.2 GB per
     CFG-doubled request at full SD3 width in f32), and adding an exact
     zero changes no bit apart from the sign of a -0.0."""
     x, c, t_emb = _embed_inputs(params, cfg, latents, t, text_emb)
+    lora = None
+    idx = None if lora_idx is None else lora_idx.to(torch.int32)
     for i in range(cfg.n_layers):
+        if lora_stack is not None:
+            lora = ({k: v[i] for k, v in lora_stack.items() if k != "scales"},
+                    idx, lora_stack["scales"])
         x, c = mmdit_block(_layer(params["layers"], i), x, c, t_emb,
-                           cfg.n_heads)
+                           cfg.n_heads, lora=lora)
         if control_residuals is not None:
             x = x + control_residuals[i]
     ada = qdense(F.silu(t_emb), params["final_ada"]) + params["final_ada_b"]

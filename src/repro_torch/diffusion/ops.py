@@ -1,5 +1,5 @@
 """Servable diffusion component models (the ``Model`` subclasses), PyTorch
-port of the basic text-to-image workflow's components.
+port of the basic and LoRA text-to-image workflows' components.
 
 Every component's ``cost()`` carries the real-scale statistics (for the
 profiles and the scheduler) and its ``load()/execute()`` run the family's
@@ -15,13 +15,18 @@ from a generator seeded with the request's seed, so the CPU and the card
 start from the same latents, and every executor-run op moves its inputs
 onto its components' device before it computes.
 
-Single-device ``execute``/``execute_batch`` only: ControlNet, LoRA (fold
-or grouped), quantized forwards, donation and the sharded plane are not
-ported yet.
+LoRA adapters apply two ways: folded into the backbone's weights once per
+``(model_id, patch_ids)`` placement (``fold_patches``, when every request
+of a batch carries the same adapter), or per row against the shared base
+weights through the grouped ``lora_matmul`` kernel
+(``execute_batch_multilora``, when a batch mixes tenants).  Single-device
+only: ControlNet, quantized forwards, donation and the sharded plane are
+not ported yet.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -37,6 +42,15 @@ from repro_torch.diffusion.encoders import (
     text_encoder_apply,
     tokenize_batch,
     vae_decode,
+)
+from repro_torch.diffusion.lora import (
+    fold_lora,
+    fold_text_lora,
+    init_lora,
+    init_text_lora,
+    randomize_lora,
+    stack_loras,
+    stack_text_loras,
 )
 from repro_torch.diffusion.mmdit import init_mmdit, mmdit_apply
 from repro_torch.diffusion.sampler import denoise_step, fused_cfg_velocity
@@ -66,6 +80,75 @@ def _f32_rows(values: Sequence[float], sizes: Sequence[int],
     transfer."""
     return torch.from_numpy(np.repeat(
         np.asarray(values, np.float32), sizes)).to(device)
+
+
+def _patch_ids(kw: Dict[str, Any]) -> Tuple[str, ...]:
+    return tuple(p.model_id for p in kw.get("_patches") or [])
+
+
+def _fold_direct(model: Model, comps: Dict[str, Any],
+                 patches: Optional[Sequence[Model]],
+                 device: torch.device) -> Dict[str, Any]:
+    """Legacy direct-call route: fold a request's ``_patches`` (adapter
+    models) into a copy of the components.  The serving runtime never
+    passes uniform patches this way; it folds through the backend's
+    ``(model_id, patch_ids)`` cache instead."""
+    if not patches:
+        return comps
+    return model.fold_patches(comps, list(patches),
+                              [p.load(device) for p in patches])
+
+
+_ML_STACK_CACHE_CAP = 16
+
+
+def _cached_lora_stack(comps: Dict[str, Any], order: Tuple[str, ...],
+                       adapters: Dict[str, Dict[str, Any]],
+                       cache_key: str = "_ml_stacks",
+                       field: str = "lora", build: Any = stack_loras) -> Any:
+    """Grouped adapter stacks, cached per adapter ordering on the
+    components dict (small LRU: a stack is a device-resident concat of the
+    pool's decoded factors, rebuilt only when the tenant mix of a batch
+    changes)."""
+    cache = comps.setdefault(cache_key, OrderedDict())
+    if order in cache:
+        cache.move_to_end(order)
+        return cache[order]
+    stack = build([adapters[pid][field] for pid in order])
+    cache[order] = stack
+    while len(cache) > _ML_STACK_CACHE_CAP:
+        cache.popitem(last=False)
+    return stack
+
+
+def _multilora_groups(batch_kwargs: List[Dict[str, Any]],
+                      adapters: Dict[str, Dict[str, Any]],
+                      field: str = "lora") -> Optional[Tuple]:
+    """Per-request adapter grouping for a mixed batch: returns
+    ``(order, per_request_idx)`` with ``order`` the distinct adapter ids
+    (first-appearance order) and ``per_request_idx[i]`` the group of
+    request i (-1 = unpatched), or ``None`` when the batch is outside the
+    grouped form (a request with >1 patch, or no adapters at all)."""
+    patch_ids = [_patch_ids(kw) for kw in batch_kwargs]
+    if any(len(ps) > 1 for ps in patch_ids):
+        return None
+    order: List[str] = []
+    for ps in patch_ids:
+        for pid in ps:
+            if pid not in order and field in adapters.get(pid, {}):
+                order.append(pid)
+    if not order:
+        return None
+    g_of = {pid: g for g, pid in enumerate(order)}
+    per_req = [g_of.get(ps[0], -1) if ps else -1 for ps in patch_ids]
+    return tuple(order), per_req
+
+
+def _row_idx(per_req: Sequence[int], sizes: Sequence[int],
+             device: torch.device) -> torch.Tensor:
+    """Per-row int32 adapter index, built host-side in ONE transfer."""
+    return torch.from_numpy(np.repeat(
+        np.asarray(per_req, np.int32), sizes)).to(device)
 
 
 # --------------------------------------------------------------------------
@@ -105,6 +188,8 @@ class LatentsGenerator(Model):
 
 
 class TextEncoder(Model):
+    supports_multilora = True
+
     def __init__(self, family: DiffusionFamily,
                  weights: Optional[Dict[str, Any]] = None) -> None:
         self.family = family
@@ -125,6 +210,43 @@ class TextEncoder(Model):
                 _generator(dev, self.model_id), _TOY_VOCAB, cfg.text_dim,
                 n_layers=2, n_heads=4, max_len=cfg.text_tokens)
         return {"params": params, "device": dev}
+
+    def fold_patches(
+        self,
+        components: Dict[str, Any],
+        patches: List[Model],
+        patch_components: List[Dict[str, Any]],
+    ) -> Dict[str, Any]:
+        params = components["params"]
+        for pc in patch_components:
+            if "text_lora" in pc:
+                params = fold_text_lora(params, pc["text_lora"])
+        return {**components, "params": params}
+
+    def execute_batch_multilora(
+        self,
+        model_components: Dict[str, Any],
+        batch_kwargs: List[Dict[str, Any]],
+        adapters: Dict[str, Dict[str, Any]],
+    ) -> Optional[List[Dict[str, Any]]]:
+        """One forward for a batch mixing text adapters: the last layer's
+        ``wo`` applies each row's adapter through the grouped kernel."""
+        groups = _multilora_groups(batch_kwargs, adapters, field="text_lora")
+        if groups is None:
+            return None
+        order, per_req = groups
+        stack = _cached_lora_stack(
+            model_components, order, adapters, cache_key="_ml_text_stacks",
+            field="text_lora", build=stack_text_loras)
+        dev = model_components["device"]
+        cfg = self.family.toy
+        ids = tokenize_batch([kw["prompt"] for kw in batch_kwargs],
+                             _TOY_VOCAB, cfg.text_tokens, dev)
+        emb = text_encoder_apply(model_components["params"], ids, n_heads=4,
+                                 lora_stack=stack,
+                                 lora_idx=torch.tensor(per_req, dtype=torch.int32,
+                                                       device=dev))
+        return [{"prompt_embeds": emb[i:i + 1]} for i in range(len(batch_kwargs))]
 
     def execute(self, model_components: Dict[str, Any], **kw: Any) -> Dict[str, Any]:
         return self.execute_batch(model_components, [kw])[0]
@@ -147,6 +269,11 @@ class TextEncoder(Model):
             act_io_bytes=f.text_encoder_bytes(),      # memory-bound at b=1
             output_bytes=f.text_tokens * 4096 * 2.0,
             max_batch=32,
+            # grouped multi-LoRA pricing: one target (last layer's wo),
+            # two skinny matmuls per row, bf16 A/B factors per adapter
+            lora_rank=8,
+            lora_flops_per_rank=4.0 * f.text_tokens * 4096,
+            lora_bytes_per_adapter=4.0 * 4096 * 8,
         )
 
 
@@ -155,6 +282,7 @@ class DiffusionBackbone(Model):
     The ControlNet residuals are a deferred input (§7.3)."""
 
     scan_role = "backbone"
+    supports_multilora = True
 
     def __init__(self, family: DiffusionFamily,
                  weights: Optional[Dict[str, Any]] = None) -> None:
@@ -179,6 +307,18 @@ class DiffusionBackbone(Model):
             params = init_mmdit(_generator(dev, self.model_id), cfg)
         return {"params": params, "cfg": cfg, "device": dev}
 
+    def fold_patches(
+        self,
+        components: Dict[str, Any],
+        patches: List[Model],
+        patch_components: List[Dict[str, Any]],
+    ) -> Dict[str, Any]:
+        """LoRA fold, done ONCE per (model, patch set) by the backend."""
+        params = components["params"]
+        for pc in patch_components:
+            params = fold_lora(params, pc["lora"])
+        return {**components, "params": params}
+
     def velocity(
         self,
         model_components: Dict[str, Any],
@@ -187,15 +327,27 @@ class DiffusionBackbone(Model):
         emb: torch.Tensor,
         res: Optional[torch.Tensor],
         guidance: torch.Tensor,
+        lora: Optional[Tuple[Dict[str, Any], torch.Tensor]] = None,
     ) -> torch.Tensor:
         """The guided velocity of one stacked forward: the one routine the
         per-step node and the fused segment both call.  ``t`` and
-        ``guidance`` are f32 ``[B]`` vectors on the components' device."""
+        ``guidance`` are f32 ``[B]`` vectors on the components' device.
+
+        ``lora = (stack, idx)`` runs the grouped multi-adapter forward:
+        ``stack`` from :func:`stack_loras` and ``idx`` the int32 ``[B]``
+        adapter of each latent row (-1 = none), doubled alongside the rows
+        for one-pass CFG."""
         cfg: DiTConfig = model_components["cfg"]
         params = model_components["params"]
+        stack = idx = None
+        if lora is not None:
+            stack, idx = lora
+            if self.family.uses_cfg:
+                idx = torch.cat([idx, idx])
 
         def apply(p, l, tt, e, r):
-            return mmdit_apply(p, cfg, l, tt, e, r)
+            return mmdit_apply(p, cfg, l, tt, e, r, lora_stack=stack,
+                               lora_idx=idx)
 
         if self.family.uses_cfg:
             return fused_cfg_velocity(apply, params, lat, t, emb, guidance, res)
@@ -209,12 +361,43 @@ class DiffusionBackbone(Model):
     ) -> List[Dict[str, Any]]:
         """Stacked cross-request forward.  Batch axis is axis 0 for
         latents/embeddings but axis 1 for the layer-major ControlNet
-        residual stacks; timesteps and guidance become per-item vectors."""
-        stacked = self._stack_batch(model_components["device"], batch_kwargs)
+        residual stacks; timesteps and guidance become per-item vectors.
+        Requests with different ``_patches`` (direct callers only) run one
+        by one, each with its adapter folded in."""
+        dev = model_components["device"]
+        patch_sets = [_patch_ids(kw) for kw in batch_kwargs]
+        if any(ps != patch_sets[0] for ps in patch_sets[1:]):
+            return self._execute_sequential(model_components, batch_kwargs)
+        stacked = self._stack_batch(dev, batch_kwargs)
         if stacked is None:
             return self._execute_sequential(model_components, batch_kwargs)
+        comps = _fold_direct(self, model_components,
+                             batch_kwargs[0].get("_patches"), dev)
         lat, emb, t, res, guidance, sizes = stacked
-        v = self.velocity(model_components, lat, t, emb, res, guidance)
+        v = self.velocity(comps, lat, t, emb, res, guidance)
+        return [{"velocity": chunk} for chunk in _split_rows(v, sizes)]
+
+    def execute_batch_multilora(
+        self,
+        model_components: Dict[str, Any],
+        batch_kwargs: List[Dict[str, Any]],
+        adapters: Dict[str, Dict[str, Any]],
+    ) -> Optional[List[Dict[str, Any]]]:
+        """One stacked forward for a batch MIXING adapters: per-row grouped
+        LoRA against the shared base params (the unfolded serving mode),
+        with no per-tenant fold and no parameter mutation."""
+        groups = _multilora_groups(batch_kwargs, adapters)
+        if groups is None:
+            return None
+        dev = model_components["device"]
+        stacked = self._stack_batch(dev, batch_kwargs)
+        if stacked is None:
+            return None
+        order, per_req = groups
+        lat, emb, t, res, guidance, sizes = stacked
+        stack = _cached_lora_stack(model_components, order, adapters)
+        v = self.velocity(model_components, lat, t, emb, res, guidance,
+                          lora=(stack, _row_idx(per_req, sizes, dev)))
         return [{"velocity": chunk} for chunk in _split_rows(v, sizes)]
 
     @staticmethod
@@ -253,6 +436,13 @@ class DiffusionBackbone(Model):
             max_parallelism=4,
             max_batch=8,
             calls_per_request=f.denoise_steps,
+            # grouped multi-LoRA pricing (§5.1 extended): 4 img-stream
+            # targets × n_layers, two skinny matmuls per row per rank;
+            # per-adapter HBM traffic is the bf16 A/B factor stream
+            lora_rank=8,
+            lora_flops_per_rank=16.0 * f.n_layers_real * f.image_tokens
+            * f.d_model_real,
+            lora_bytes_per_adapter=16.0 * f.n_layers_real * f.d_model_real * 8,
         )
 
     def build_segment(self, controlnets: List[Model],
@@ -354,10 +544,14 @@ class DenoiseSegment(Model):
     different step counts share one ``model_id``, and cross-request
     batches may mix schedules.  The runtime executes segments in
     load-adaptive chunks via the reserved ``_seg_start`` / ``_seg_steps``
-    kwargs.  Chains with ControlNet branches are not ported yet.
+    kwargs.  LoRA patches fold into the backbone params once per placement;
+    a batch mixing tenants runs every step's forward with per-row adapters
+    (:meth:`execute_batch_multilora`).  Chains with ControlNet branches are
+    not ported yet.
     """
 
     is_segment = True
+    supports_multilora = True
 
     def __init__(self, backbone: DiffusionBackbone,
                  controlnets: Sequence[Model], n_steps: int) -> None:
@@ -388,6 +582,16 @@ class DenoiseSegment(Model):
     def load(self, device: Any = None) -> Dict[str, Any]:
         return {"backbone": self.backbone.load(device)}
 
+    def fold_patches(
+        self,
+        components: Dict[str, Any],
+        patches: List[Model],
+        patch_components: List[Dict[str, Any]],
+    ) -> Dict[str, Any]:
+        folded = self.backbone.fold_patches(
+            components["backbone"], patches, patch_components)
+        return {**components, "backbone": folded}
+
     @staticmethod
     def _chunk_of(kw: Dict[str, Any]) -> Tuple[int, int]:
         """(start, steps) of the chunk this call covers."""
@@ -399,9 +603,10 @@ class DenoiseSegment(Model):
 
     def _run(self, comps: Dict[str, Any], batch_kwargs: List[Dict[str, Any]],
              sizes: List[int], steps: int, lat: torch.Tensor,
-             emb: torch.Tensor) -> torch.Tensor:
+             emb: torch.Tensor, lora: Optional[Tuple] = None) -> torch.Tensor:
         """``steps`` Euler steps of the stacked batch, each one guided
-        backbone forward plus the shared update."""
+        backbone forward (per-row adapters when ``lora`` is given) plus the
+        shared update."""
         dev = comps["backbone"]["device"]
         cols = {"t_mid": [], "t_cur": [], "t_next": []}
         gs = []
@@ -416,16 +621,17 @@ class DenoiseSegment(Model):
             t, tc, tn = (_f32_rows([c[s] for c in cols[name]], sizes, dev)
                          for name in ("t_mid", "t_cur", "t_next"))
             v = self.backbone.velocity(comps["backbone"], lat, t, emb, None,
-                                       guidance)
+                                       guidance, lora=lora)
             lat = denoise_step(lat, v, tc, tn)
         return lat
 
     def execute(self, model_components: Dict[str, Any], **kw: Any) -> Dict[str, Any]:
         return self.execute_batch(model_components, [kw])[0]
 
-    def execute_batch(
-        self, model_components: Dict[str, Any], batch_kwargs: List[Dict[str, Any]]
-    ) -> List[Dict[str, Any]]:
+    def _segment_steps(self, batch_kwargs: List[Dict[str, Any]]
+                       ) -> Optional[int]:
+        """The chunk length every request of the batch covers, or None when
+        the batch cannot be stacked (shapes or chunk lengths disagree)."""
         lats = [kw["latents"] for kw in batch_kwargs]
         embs = [kw["prompt_embeds"] for kw in batch_kwargs]
         chunks = [self._chunk_of(kw) for kw in batch_kwargs]
@@ -433,14 +639,53 @@ class DenoiseSegment(Model):
         if (any(l.shape[1:] != lats[0].shape[1:] for l in lats[1:])
                 or any(e.shape[1:] != embs[0].shape[1:] for e in embs[1:])
                 or any(c[1] != steps for c in chunks[1:])):
-            return self._execute_sequential(model_components, batch_kwargs)
-        if steps <= 0:
-            return [{"latents": l} for l in lats]
-        dev = model_components["backbone"]["device"]
+            return None
+        return steps
+
+    @staticmethod
+    def _stack(dev: torch.device, batch_kwargs: List[Dict[str, Any]]) -> Tuple:
+        lats = [kw["latents"] for kw in batch_kwargs]
         sizes = [int(l.shape[0]) for l in lats]
         lat = torch.cat([l.to(dev) for l in lats], dim=0)
-        emb = torch.cat([e.to(dev) for e in embs], dim=0)
-        out = self._run(model_components, batch_kwargs, sizes, steps, lat, emb)
+        emb = torch.cat([kw["prompt_embeds"].to(dev) for kw in batch_kwargs],
+                        dim=0)
+        return lat, emb, sizes
+
+    def execute_batch(
+        self, model_components: Dict[str, Any], batch_kwargs: List[Dict[str, Any]]
+    ) -> List[Dict[str, Any]]:
+        steps = self._segment_steps(batch_kwargs)
+        patch_sets = [_patch_ids(kw) for kw in batch_kwargs]
+        if steps is None or any(ps != patch_sets[0] for ps in patch_sets[1:]):
+            return self._execute_sequential(model_components, batch_kwargs)
+        if steps <= 0:
+            return [{"latents": kw["latents"]} for kw in batch_kwargs]
+        dev = model_components["backbone"]["device"]
+        lat, emb, sizes = self._stack(dev, batch_kwargs)
+        comps = _fold_direct(self, model_components,
+                             batch_kwargs[0].get("_patches"), dev)
+        out = self._run(comps, batch_kwargs, sizes, steps, lat, emb)
+        return [{"latents": chunk} for chunk in _split_rows(out, sizes)]
+
+    def execute_batch_multilora(
+        self,
+        model_components: Dict[str, Any],
+        batch_kwargs: List[Dict[str, Any]],
+        adapters: Dict[str, Dict[str, Any]],
+    ) -> Optional[List[Dict[str, Any]]]:
+        """The whole chunk for a batch mixing tenants: cross-tenant
+        requests share the segment, and every step applies per-row
+        adapters against the shared base params."""
+        groups = _multilora_groups(batch_kwargs, adapters)
+        steps = self._segment_steps(batch_kwargs)
+        if groups is None or steps is None or steps <= 0:
+            return None
+        order, per_req = groups
+        dev = model_components["backbone"]["device"]
+        lat, emb, sizes = self._stack(dev, batch_kwargs)
+        stack = _cached_lora_stack(model_components, order, adapters)
+        out = self._run(model_components, batch_kwargs, sizes, steps, lat, emb,
+                        lora=(stack, _row_idx(per_req, sizes, dev)))
         return [{"latents": chunk} for chunk in _split_rows(out, sizes)]
 
     def cost(self) -> ModelCost:
@@ -456,4 +701,48 @@ class DenoiseSegment(Model):
             max_batch=b.max_batch,
             calls_per_request=1,
             steps_per_call=self.n_steps,
+            # per-row adapters apply inside every step: inherit the
+            # backbone's per-step multi-LoRA pricing terms
+            lora_rank=b.lora_rank,
+            lora_flops_per_rank=b.lora_flops_per_rank,
+            lora_bytes_per_adapter=b.lora_bytes_per_adapter,
         )
+
+
+class LoRAAdapter(Model):
+    """Weight-patching adapter (attached via ``backbone.add_patch``).
+
+    ``load(device)`` draws the backbone factors (``"lora"``, B randomized
+    so the adapter changes the image) and the text-encoder companion
+    (``"text_lora"``) on the device from a generator seeded with the model
+    id, or moves the converted ``weights`` (a ``{"lora", "text_lora"}``
+    tree) a caller handed in."""
+
+    def __init__(self, family: DiffusionFamily, name: str = "style",
+                 rank: int = 8, param_bytes: float = 886 * 2**20,
+                 weights: Optional[Dict[str, Any]] = None) -> None:
+        self.family = family
+        self.rank = rank
+        self.weights = weights
+        self._param_bytes = param_bytes
+        super().__init__(model_id=f"lora:{name}:{family.name}")
+
+    def setup_io(self) -> None:
+        self.add_output("adapter_weights", TensorType())
+
+    def load(self, device: Any = None) -> Dict[str, Any]:
+        dev = _device(device)
+        if self.weights is not None:
+            return to_device(self.weights, dev)
+        gen = _generator(dev, self.model_id)
+        cfg = self.family.toy
+        lora = randomize_lora(gen, init_lora(gen, cfg, rank=self.rank))
+        return {"lora": lora,
+                "text_lora": init_text_lora(gen, cfg.text_dim, rank=self.rank)}
+
+    def execute(self, model_components: Dict[str, Any], **kw: Any) -> Dict[str, Any]:
+        return {"adapter_weights": model_components["lora"]}
+
+    def cost(self) -> ModelCost:
+        return ModelCost(0, self._param_bytes, self._param_bytes,
+                         self._param_bytes, max_batch=1)

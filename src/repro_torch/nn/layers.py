@@ -20,6 +20,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.lora_matmul.ops import lora_apply_grouped
+
 Params = Dict[str, Any]
 
 
@@ -65,6 +67,36 @@ def qdense(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     weight route of the JAX package's ``qdense``)."""
     dt = torch.promote_types(h.dtype, w.dtype)
     return h.to(dt) @ w.to(dt)
+
+
+# ----------------------------------------------------- grouped LoRA dense
+
+def grouped_lora_dense(
+    h: torch.Tensor,            # [B, S, d_in]
+    w: torch.Tensor,            # [d_in, d_out]
+    a: torch.Tensor,            # [G, d_in, r]  stacked adapter A factors
+    b: torch.Tensor,            # [G, r, d_out] stacked adapter B factors
+    idx: torch.Tensor,          # [B] int32 adapter per batch row; -1 = none
+    scales: torch.Tensor,       # [G]
+) -> torch.Tensor:
+    """Dense projection with a per-row grouped multi-LoRA delta:
+    ``h @ w + scales[idx] * (h @ a[idx]) @ b[idx]``, one forward for a batch
+    mixing G tenants, through the grouped ``lora_matmul`` kernel (its plain
+    version for CPU tensors, where rows with ``idx < 0`` equal
+    :func:`qdense` bit for bit).
+
+    The JAX package dequantizes ``w`` first; the port has no quantized
+    weights until the quant slice, so dequantization is the identity and a
+    weight that is not a plain tensor is refused."""
+    if not isinstance(w, torch.Tensor):
+        raise TypeError("grouped_lora_dense: quantized weights reach the "
+                        "grouped LoRA route only with the quant slice, which "
+                        "the port does not have yet")
+    bsz, s, d_in = h.shape
+    rows_idx = idx.to(torch.int32).repeat_interleave(s)
+    out = lora_apply_grouped(h.reshape(bsz * s, d_in), w, a, b, rows_idx,
+                             scales)
+    return out.reshape(bsz, s, w.shape[1])
 
 
 # ---------------------------------------------------------------- init utils

@@ -1,9 +1,10 @@
-"""The port's CUDA kernel on the card, against its plain version.
+"""The port's CUDA kernels on the card, against their plain versions.
 
 Marked ``cuda``: these tests skip where no CUDA device is present, and run
 on a machine with one (``python -m pytest -q -m cuda tests/test_torch_cuda.py``).
 The file imports only the port, so it runs where JAX is not installed.
-Tolerances: f32 atol 2e-5, bf16 3e-2 (the JAX package's kernel grid)."""
+Flash-attention tolerances: f32 atol 2e-5, bf16 3e-2 (the JAX package's
+kernel grid)."""
 
 import numpy as np
 import pytest
@@ -46,3 +47,76 @@ def test_kernel_matches_plain_version(card, shape, causal, window, dtype, atol):
     want = attention_ref(q, k, v, causal=causal, window=window)
     assert out.dtype == dtype
     torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=atol)
+
+
+# ------------------------------------------------------- fused LoRA matmul
+# Tolerances: f32 1e-4, bf16 1.5e-1 (the JAX package's LoRA kernel grid).
+
+def _lora_inputs(card, m, k, n, g, r, dtypes):
+    rng = np.random.default_rng(1)
+    xt, wt, ft = dtypes
+
+    def t(shape, dt, div=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) / div)
+                                .astype(np.float32)).to(card, dt)
+
+    return (t((m, k), xt), t((k, n), wt, np.sqrt(k)),
+            t((k, g * r), ft, np.sqrt(k)), t((g * r, n), ft))
+
+
+LORA_TYPES = [((torch.float32,) * 3, 1e-4),
+              ((torch.float32, torch.bfloat16, torch.bfloat16), 1e-4),
+              ((torch.bfloat16,) * 3, 1.5e-1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes,tol", LORA_TYPES)
+def test_lora_kernels_match_plain_versions(card, dtypes, tol):
+    from repro_torch.kernels.lora_matmul import kernel as lk
+    from repro_torch.kernels.lora_matmul.ref import (
+        lora_matmul_masked_ref,
+        lora_matmul_ref,
+    )
+
+    m, k, n, g, r = 200, 96, 160, 3, 8
+    x, w, a_cat, b_cat = _lora_inputs(card, m, k, n, g, r, dtypes)
+    before = (lk.lora_matmul.launches, lk.lora_matmul_grouped.launches)
+    out = lk.lora_matmul(x, w, a_cat[:, :r].contiguous(),
+                         b_cat[:r].contiguous(), scale=0.7)
+    idx = torch.tensor([(i % (g + 1)) - 1 for i in range(m)],
+                       dtype=torch.int32, device=card)
+    scales = torch.tensor([0.5, 0.75, 1.0], device=card)
+    outg = lk.lora_matmul_grouped(x, w, a_cat, b_cat, idx, scales)
+    torch.cuda.synchronize()
+    assert (lk.lora_matmul.launches, lk.lora_matmul_grouped.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert out.dtype == outg.dtype == x.dtype
+    want = lora_matmul_ref(x, w, a_cat[:, :r], b_cat[:r], scale=0.7)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    wantg = lora_matmul_masked_ref(x, w, a_cat, b_cat, idx, scales)
+    torch.testing.assert_close(outg.float(), wantg.float(), atol=tol, rtol=tol)
+    # a row's base product does not depend on the other rows' adapters
+    none = lk.lora_matmul_grouped(x, w, a_cat, b_cat, torch.full_like(idx, -1),
+                                  scales)
+    plain = idx < 0
+    assert torch.equal(outg[plain], none[plain])
+
+
+@pytest.mark.cuda
+def test_lora_kernels_refuse_what_they_do_not_take(card):
+    """On the card the wrappers launch the kernel or raise: CPU operands,
+    uninstantiated types and oversized ranks are refused."""
+    from repro_torch.kernels.lora_matmul import kernel as lk
+
+    x, w, a, b = _lora_inputs(card, 8, 16, 16, 1, 4, (torch.float32,) * 3)
+    with pytest.raises(ValueError, match="device"):
+        lk.lora_matmul(x, w.cpu(), a, b)
+    with pytest.raises(ValueError, match="types"):
+        lk.lora_matmul(x.to(torch.bfloat16), w.float(), a.float(), b.float())
+    big_a = torch.zeros((16, 260), device=card)
+    with pytest.raises(ValueError, match="rank columns"):
+        lk.lora_matmul(x, w, big_a, torch.zeros((260, 16), device=card))
+    with pytest.raises(ValueError, match="idx"):
+        lk.lora_matmul_grouped(x, w, a, b, torch.zeros(8, dtype=torch.int64,
+                                                       device=card),
+                               torch.ones(1, device=card))

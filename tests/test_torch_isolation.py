@@ -25,6 +25,17 @@ MODULES = [
     "repro_torch.diffusion.workflows",
     "repro_torch.weights",
 ]
+# the multi-tenant LoRA path: the grouped and single-adapter kernels, the
+# adapter utilities and the models' grouped forwards
+LORA_MODULES = [
+    "repro_torch.kernels.lora_matmul.kernel",
+    "repro_torch.kernels.lora_matmul.ops",
+    "repro_torch.kernels.lora_matmul.ref",
+    "repro_torch.diffusion.lora",
+    "repro_torch.diffusion.mmdit",
+    "repro_torch.diffusion.encoders",
+    "repro_torch.diffusion.ops",
+]
 
 _PROBE = """
 import importlib, sys
@@ -49,7 +60,8 @@ def _src():
         os.path.abspath(__file__))), "src")
 
 
-@pytest.mark.parametrize("modules", [MODULES], ids=["main-path"])
+@pytest.mark.parametrize("modules", [MODULES, LORA_MODULES],
+                         ids=["main-path", "lora"])
 def test_port_imports_without_jax_or_repro(modules):
     env = dict(os.environ, PYTHONPATH=_src())
     out = subprocess.run([sys.executable, "-c", _PROBE, *modules], env=env,
