@@ -6,8 +6,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failed check raises, and the script exits non-zero):
 
 1. Card: name and power limit, versions, and the build of every CUDA
-   kernel from the checkout's sources (one ``nvcc`` per source, all started
-   together, into ``build/``), with ptxas's registers and spills.
+   kernel from the checkout's sources (one ``nvcc`` per source, all four
+   started together, into ``build/``), with ptxas's registers and spills.
 2. Each kernel against its plain PyTorch version on the card.  Flash
    attention: the JAX package's kernel grid (f32 atol 2e-5, bf16 3e-2) and
    the full-width path shapes at f32 (atol 2e-5: both sides compute in f32
@@ -18,14 +18,21 @@ Phases (any failed check raises, and the script exits non-zero):
    shapes in the path's types at atol 2e-5 * sqrt(K/64) (the f32 sums come
    in another order, and their rounding grows with the depth K).  A row
    with idx = -1 must give the same bits as when the whole batch has
-   idx = -1.
+   idx = -1.  ``quant_matmul`` bit for bit (its int32 sum is exact): the
+   JAX package's grid (``tests/test_quant.py``), all-127 operands at
+   K = 16384, and every full-width path shape.  ``rglru_scan`` within 2e-5
+   (``tests/test_kernels.py``'s tolerance) on the JAX package's grid and at
+   RecurrentGemma-2B width (D 2560; B 1, T 8192 and B 8, T 2048).
 3. Toy size, card against CPU on the same weights and latents: one
    ``sd3:basic`` request, and the three-tenant mix (two LoRA tenants and
    one basic request, 3 steps) on the multilora scheduler.  Images agree
    within 1e-4 relative (L2 norm), the bound the CPU tests hold the port to
    against the JAX package; on the card the grouped images agree with each
    tenant's folded solo run within 2e-4 max-abs (``PARITY_TOL`` of the JAX
-   package's test).
+   package's test).  The basic request again under ``REPRO_QUANT`` int8 and
+   fp8, card against CPU: fp8 within 1e-4, int8 within 2.5e-2 (the CPU
+   tests' bounds: int8 rounding flips move the image by about 2e-2), each
+   away from the fp32 image.
 4. The basic path: ``ServingSystem(n_executors=1,
    backend=LocalBackend(device="cuda"))`` serving 2 ``sd3:basic`` requests
    at full SD3 MMDiT width (random weights from fixed seeds, 4 denoising
@@ -69,10 +76,31 @@ Phases (any failed check raises, and the script exits non-zero):
 5c. Flash attention at each shape the LoRA path gave it that phase 5 did
    not cover (the three-request batch), held against the plain version
    (f32 atol 2e-5) and timed as in phase 5.
+4q. The basic path under ``set_quant_mode("int8")`` (restored afterwards, so
+   later phases run "off"): phase 4's two requests on fresh weights from
+   the same seeds, quantized on load.  Counts set to 0 just before and read
+   just after: ``quant_matmul`` exactly 1344 launches per 4-step segment
+   dispatch (24 layers x 2 streams x 7 projections x 4 steps) plus 12 per
+   text batch, flash attention as in phase 4.  Images as in phase 4, and
+   each within ``INT8_VS_FP32_REL`` of phase 4's fp32 image.  The same
+   requests served again with the script putting the plain version in the
+   kernel's place: within 1e-6 relative, bit-identity printed.
+5q. ``quant_matmul`` at every shape the int8 path gave it (checked bit for
+   bit first where phase 2 did not), timed as in phase 5 beside its plain
+   version, the bound, ``torch._int_mm`` with the same epilogue (a
+   yardstick the port never calls; null where its shape rules refuse), the
+   plain activation quantization and the float32 product of the "off"
+   route.  ``rglru_scan`` timed at RecurrentGemma-2B width beside its plain
+   version and its bound (no PyTorch call computes the recurrence).
+6q. Where the time goes on the int8 path: the two requests again under the
+   profiler, with the activation quantization named by a
+   ``record_function`` range the script wraps around it.
 
-Before the last two lines, one JSON ``kernels`` line lists every kernel: its
-``launches`` are the count from its own path's run (the single-adapter
-kernel has no serving path: 0), and each leads with the largest shape its
+The phases run in the order 1, 2, 3, 4, 5, 6, 4q, 5q, 6q, 4b, 4c, 5b, 6b,
+5c.  Before the last two lines, one JSON ``kernels`` line lists every
+kernel: its ``launches`` are the count from its own path's run (the
+single-adapter LoRA kernel and ``rglru_scan`` have no serving path: 0), and
+each leads with the largest shape its
 path launched, the others under ``other_shapes``.  The line before the last
 is the card's name and power limit as nvidia-smi prints them; the last line
 is the JSON result.  Without a CUDA device, or without the repository beside
@@ -97,7 +125,7 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and the
 # f32 rate outside the tensor cores, which bounds an f32 FMA kernel.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 
 GRID = [  # (BH, Sq, Sk, D), causal, window — tests/test_kernels.py's grid
     ((2, 128, 128, 64), False, None),
@@ -127,6 +155,20 @@ TARGETS = 4                    # q, k, v, o of the image stream
 # swapped adapter gives (phase 4b reads both controls)
 TENANT_FOLD_REL = 1e-2
 LIBRARY = "cuBLAS composite: x @ W.float() + ((x @ A_cat.float()) * mask) @ B_cat.float()"
+# (M, K, N): tests/test_quant.py's int8 grid
+QUANT_GRID = [(1, 8, 8), (5, 24, 40), (33, 128, 96), (128, 100, 200)]
+QUANT_LIBRARY = "torch._int_mm(xq, wq).float() * xs * ws"
+# the int8 image against the fp32 one, relative: int8 moves the served
+# image by a few 1e-2 (the JAX package: 2.8e-2 to 3.5e-2 at the toy size);
+# a wrong scale or a swapped operand gives order 1
+INT8_VS_FP32_REL = 0.25
+# toy image, card against CPU, per mode (the CPU tests' served bounds:
+# int8 rounding flips move the int8 image by about 2e-2)
+TOY_QUANT_REL = {"int8": 2.5e-2, "fp8": 1e-4}
+# (B, T, D): tests/test_kernels.py's RG-LRU grid, then RecurrentGemma-2B's
+# width (D 2560) at two batch and sequence splits
+RGLRU_GRID = [(2, 128, 128), (1, 200, 96), (3, 64, 256), (2, 300, 50)]
+RGLRU_WIDE = [(1, 8192, 2560), (8, 2048, 2560)]
 
 
 def log(*a):
@@ -316,12 +358,134 @@ def time_lora(torch, lk, lref, spec, reps=10) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+# ------------------------------------------------------- int8 quant matmul
+
+def quant_inputs(torch, m, k, n, seed=0, fill=None):
+    """Random int8 operands and float32 scales on the card (all ``fill``
+    and unit scales when ``fill`` is given)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if fill is not None:
+        return (torch.full((m, k), fill, dtype=torch.int8, device="cuda"),
+                torch.full((k, n), fill, dtype=torch.int8, device="cuda"),
+                torch.ones((m, 1), device="cuda"),
+                torch.ones((1, n), device="cuda"))
+    return (torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                          dtype=torch.int8),
+            torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8),
+            torch.rand((m, 1), generator=gen, device="cuda") / 50,
+            torch.rand((1, n), generator=gen, device="cuda") / 50)
+
+
+def check_quant(torch, qk, qref, shape, fill=None) -> float:
+    """The kernel against its plain version: the same bits, or raise."""
+    args = quant_inputs(torch, *shape, fill=fill)
+    out = qk.quant_matmul(*args)
+    torch.cuda.synchronize()
+    want = qref.quant_matmul_ref(*args)
+    if not torch.equal(out, want):
+        err = float((out - want).abs().max())
+        raise AssertionError(f"quant_matmul {shape}: not bit-identical to its "
+                             f"plain version (max |err| {err})")
+    return float((out - want).abs().max())
+
+
+def quant_bound_ms(m, k, n) -> tuple:
+    """xq, wq and the two scale vectors read once, the float32 output
+    written once, against 2*M*K*N int8 operations."""
+    return bound(m * k + k * n + 4 * (m + n) + 4 * m * n, 2.0 * m * k * n,
+                 "int8")
+
+
+def time_quant(torch, qk, qref, qops, shape, reps=10) -> dict:
+    """The kernel at one path shape beside its plain version, the bound,
+    ``torch._int_mm`` with the same epilogue (None where its shape rules
+    refuse), the plain activation quantization that feeds the kernel, and
+    the float32 product the "off" route runs there (f32 x against a bf16
+    weight, as ``qdense`` computes it)."""
+    m, k, n = shape
+    xq, wq, xs, ws = quant_inputs(torch, m, k, n, seed=1)
+    x = torch.randn((m, k), device="cuda")
+    w = torch.randn((k, n), device="cuda").to(torch.bfloat16)
+    bound_ms, bound_by = quant_bound_ms(m, k, n)
+    try:
+        torch._int_mm(xq, wq)
+        library_ms = cuda_ms(
+            torch, lambda: torch._int_mm(xq, wq).float() * xs * ws, reps)
+    except RuntimeError as e:
+        log(f"[time] torch._int_mm refuses M={m}, K={k}, N={n}: "
+            f"{str(e).splitlines()[0][:120]}")
+        library_ms = None
+    return {"shape": "M=%d,K=%d,N=%d,int8" % shape,
+            "ms": cuda_ms(torch, lambda: qk.quant_matmul(xq, wq, xs, ws), reps),
+            "plain_ms": cuda_ms(
+                torch, lambda: qref.quant_matmul_ref(xq, wq, xs, ws), reps),
+            "library_ms": library_ms, "library": QUANT_LIBRARY,
+            "quantize_rows_ms": cuda_ms(torch, lambda: qops._quantize_rows(x),
+                                        reps),
+            "off_route_f32_ms": cuda_ms(torch, lambda: x @ w.float(), reps),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def quant_path(dispatch_log, cfg) -> tuple:
+    """int8 products the served dispatches must have made, and their (M, K,
+    N): 7 per stream and layer of each backbone forward (ada on the B rows,
+    q/k/v/o, w1 and w2 on every token row of the stream), 6 per layer of
+    each text-encoder batch (2 layers)."""
+    expected, shapes = 0, set()
+    d, ff, td = cfg.d_model, cfg.d_ff, cfg.text_dim
+    for disp in dispatch_log:
+        n = len(disp.nodes)
+        if disp.model_id.startswith(("segment:", "backbone:")):
+            fwd = (disp.segment_steps if disp.model_id.startswith("segment:")
+                   else 1)
+            expected += fwd * cfg.n_layers * 2 * 7
+            rows = 2 * n                                # one-pass CFG
+            shapes.add((rows, d, 6 * d))
+            for m in (rows * cfg.image_tokens, rows * cfg.text_tokens):
+                shapes |= {(m, d, d), (m, d, ff), (m, ff, d)}
+        elif disp.model_id.startswith("text_encoder:"):
+            expected += 2 * 6
+            m = n * cfg.text_tokens
+            shapes |= {(m, td, td), (m, td, 4 * td), (m, 4 * td, td)}
+    return expected, shapes
+
+
+# ------------------------------------------------------------ RG-LRU scan
+
+def rglru_inputs(torch, b, t, d, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.sigmoid(torch.randn((b, t, d), generator=gen, device="cuda")),
+            torch.randn((b, t, d), generator=gen, device="cuda"))
+
+
+def check_rglru(torch, rk, rref, shape, atol=2e-5) -> float:
+    a, x = rglru_inputs(torch, *shape)
+    out = rk.rglru_scan(a, x)
+    torch.cuda.synchronize()
+    return close_or_raise(f"rglru_scan {shape}", out, rref.rglru_ref(a, x),
+                          atol, atol)
+
+
+def time_rglru(torch, rk, rref, shape, reps=10) -> dict:
+    """Bound: a and x read once and h written once, 12 bytes an element."""
+    a, x = rglru_inputs(torch, *shape, seed=1)
+    b, t, d = shape
+    bound_ms, bound_by = bound(12.0 * b * t * d, 6.0 * b * t * d, "float32")
+    return {"shape": "B=%d,T=%d,D=%d,float32" % shape,
+            "ms": cuda_ms(torch, lambda: rk.rglru_scan(a, x), reps),
+            "plain_ms": cuda_ms(torch, lambda: rref.rglru_ref(a, x), reps),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 # -------------------------------------------------------------- serving
 
-def profile_path(torch, system, subs, card, label, kernels) -> dict:
+def profile_path(torch, system, subs, card, label, kernels,
+                 ranges=None) -> dict:
     """Serve ``subs`` again on the warm system under the profiler; device
     time by kernel, the named kernels' shares and the idle share of the
-    window."""
+    window.  ``ranges`` names ``record_function`` ranges whose kernels'
+    device time is reported as a share too."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -337,7 +501,10 @@ def profile_path(torch, system, subs, card, label, kernels) -> dict:
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", 0) or 0
-        if e.device_type.name == "CUDA" and dev_us > 0:
+        # a record_function range also shows on the device timeline: its
+        # kernels are counted once, under their own names
+        if (e.device_type.name == "CUDA" and dev_us > 0
+                and e.key not in (ranges or {}).values()):
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
@@ -348,6 +515,11 @@ def profile_path(torch, system, subs, card, label, kernels) -> dict:
            "idle_share": 1 - busy_ms / wall_ms if rows else "not measured"}
     for name, key in kernels.items():
         ms = sum(r[0] for r in rows if key in r[2])
+        out[f"{name}_share_of_busy"] = ms / busy_ms if rows else "not measured"
+    for name, key in (ranges or {}).items():
+        ms = sum((e.device_time_total or 0) / 1e3 for e in prof.key_averages()
+                 if e.key == key and e.device_type.name == "CPU")
+        out[f"{name}_ms"] = ms
         out[f"{name}_share_of_busy"] = ms / busy_ms if rows else "not measured"
     out["top_kernels"] = [{"ms": ms, "count": n, "name": name[:90]}
                           for ms, n, name in rows[:8]]
@@ -454,6 +626,12 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.lora_matmul import kernel as lk
     from repro_torch.kernels.lora_matmul import ref as lref
+    from repro_torch.kernels.quant_matmul import kernel as qk
+    from repro_torch.kernels.quant_matmul import ops as qops
+    from repro_torch.kernels.quant_matmul import ref as qref
+    from repro_torch.kernels.rglru_scan import kernel as rk
+    from repro_torch.kernels.rglru_scan import ref as rref
+    from repro_torch.nn.layers import quant_mode, set_quant_mode
 
     t_start = time.perf_counter()
     f32, bf16 = torch.float32, torch.bfloat16
@@ -470,11 +648,12 @@ def main() -> None:
         t0 = time.perf_counter()
         return build.build(source), time.perf_counter() - t0
 
+    sources = (fa.SOURCE, lk.SOURCE, qk.SOURCE, rk.SOURCE)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        built = list(pool.map(timed_build, (fa.SOURCE, lk.SOURCE)))
-    log(f"[build] both sources in {time.perf_counter() - t0:.1f} s")
-    for source, (lib, secs) in zip((fa.SOURCE, lk.SOURCE), built):
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        built = list(pool.map(timed_build, sources))
+    log(f"[build] {len(sources)} sources in {time.perf_counter() - t0:.1f} s")
+    for source, (lib, secs) in zip(sources, built):
         log(f"[build] {source.name} in {secs:.1f} s")
         lines = lib.with_suffix(".log").read_text().splitlines()
         for line in dict.fromkeys(l.strip() for l in lines
@@ -541,6 +720,33 @@ def main() -> None:
         "all-idx=-1 batch")
     del x, w, a, b, mixed, none
 
+    # int8 products: bit for bit on the JAX grid, with all-127 operands at
+    # K = 16384 (127^2 * K in every element, near the top of int32), and at
+    # the full-width path's shapes (2 requests with CFG: 4 rows, 16384 image
+    # and 1332 text tokens; text encoder 333 or 666 rows)
+    quant_checked = set()
+    for shape in QUANT_GRID:
+        check_quant(torch, qk, qref, shape)
+        quant_checked.add(shape)
+        log(f"[kernel] quant_matmul grid {shape}: bit-identical")
+    check_quant(torch, qk, qref, (4, 16384, 8), fill=127)
+    log("[kernel] quant_matmul all-127 (4, 16384, 8): bit-identical, "
+        f"{127 * 127 * 16384} in every element")
+    d, ff, td = 1536, 6144, 4096
+    for shape in ([(4, d, 6 * d)]
+                  + [(m, k, n) for m in (16384, 1332)
+                     for k, n in ((d, d), (d, ff), (ff, d))]
+                  + [(m, k, n) for m in (333, 666)
+                     for k, n in ((td, td), (td, 4 * td), (4 * td, td))]):
+        check_quant(torch, qk, qref, shape)
+        quant_checked.add(shape)
+        log(f"[kernel] quant_matmul path {shape}: bit-identical")
+    rglru_err = 0.0
+    for shape in RGLRU_GRID + RGLRU_WIDE:
+        err = check_rglru(torch, rk, rref, shape)
+        rglru_err = max(rglru_err, err)
+        log(f"[kernel] rglru_scan {shape}: max|err| {err:.2e} (atol=rtol=2e-5)")
+
     # -------------------------------------------- 3. toy path, card vs CPU
     cpu_ms = ModelSet(SD3)
     gpu_ms = ModelSet(SD3)
@@ -593,6 +799,30 @@ def main() -> None:
         log(f"[toy] {name} on the card: grouped vs folded solo max|diff| "
             f"{d:.2e} <= 2e-4")
 
+    # toy sd3:basic under each quantized mode, card against CPU on the same
+    # weights (each device quantizes them on load)
+    for mode in ("int8", "fp8"):
+        prev = set_quant_mode(mode)
+        quant_imgs = {}
+        try:
+            for role, dev, tms in (("card", "cuda", gpu_ms),
+                                   ("cpu", "cpu", cpu_ms)):
+                system = ServingSystem(n_executors=1,
+                                       backend=LocalBackend(device=dev))
+                system.register(make_basic_workflow("sd3", tms))
+                req = serve(system, [("sd3:basic", REQUESTS[0])], STEPS)[0]
+                quant_imgs[role] = image_of(system, req)
+        finally:
+            set_quant_mode(prev)
+        e = rel(quant_imgs["card"], images["cpu"])
+        q_rel = rel(quant_imgs["card"], quant_imgs["cpu"])
+        if not q_rel <= TOY_QUANT_REL[mode] or not e > 1e-3:
+            raise AssertionError(f"toy {mode} card vs CPU rel err {q_rel} "
+                                 f"(bound {TOY_QUANT_REL[mode]}); vs the CPU's "
+                                 f"fp32 image {e}")
+        log(f"[toy] sd3:basic {mode} card vs CPU image rel err {q_rel:.2e} <= "
+            f"{TOY_QUANT_REL[mode]}; against the fp32 image {e:.2e}")
+
     # ------------------------------------------- 4. full-width basic path
     family = dataclasses.replace(SD3, toy=REAL["sd3"])
     cfg = family.toy
@@ -605,6 +835,7 @@ def main() -> None:
     torch.cuda.synchronize()
     fa.flash_attention.launches = 0
     lk.lora_matmul.launches = lk.lora_matmul_grouped.launches = 0
+    qk.quant_matmul.launches = rk.rglru_scan.launches = 0
     t0 = time.perf_counter()
     reqs = [system.submit("sd3:basic", inputs=dict(inp), arrival=0.0,
                           steps=STEPS) for inp in REQUESTS]
@@ -613,12 +844,15 @@ def main() -> None:
     wall_s = time.perf_counter() - t0
     launches = fa.flash_attention.launches
     lora_on_basic = lk.lora_matmul.launches + lk.lora_matmul_grouped.launches
+    others_on_basic = qk.quant_matmul.launches + rk.rglru_scan.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     expected, path_shapes = expected_flash(system.coordinator.dispatch_log, cfg)
+    fp32_images = []
     for req in reqs:
         if req.status != "done":
             raise AssertionError(f"full-width request {req.rid}: {req.status}")
         img = image_of(system, req)
+        fp32_images.append(img)
         check_image(torch, img, card, f"request {req.rid}")
         log(f"[path] request {req.rid} done: latency {req.latency:.3f} s on "
             f"the coordinator's measured timeline; image {tuple(img.shape)} "
@@ -626,9 +860,10 @@ def main() -> None:
     if launches < expected or expected == 0:
         raise AssertionError(f"flash_attention launched {launches} times on "
                              f"the main path, expected >= {expected}")
-    if lora_on_basic:
-        raise AssertionError(f"the basic path launched a LoRA kernel "
-                             f"{lora_on_basic} times")
+    if lora_on_basic or others_on_basic:
+        raise AssertionError(f"the fp32 basic path launched a LoRA kernel "
+                             f"{lora_on_basic} times, quant_matmul or "
+                             f"rglru_scan {others_on_basic} times")
     log(f"[path] 2 full-width sd3:basic requests, {STEPS} steps, wall "
         f"{wall_s:.2f} s (weights drawn on the card included), peak memory "
         f"{peak_gib:.2f} GiB, flash_attention launches {launches} "
@@ -649,6 +884,122 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -------------------------- 4q. full-width basic path under int8
+    prev_mode = set_quant_mode("int8")
+    try:
+        ms = ModelSet(family)
+        system = ServingSystem(n_executors=1,
+                               backend=LocalBackend(device="cuda"))
+        system.register(make_basic_workflow("sd3", ms))
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        fa.flash_attention.launches = 0
+        lk.lora_matmul.launches = lk.lora_matmul_grouped.launches = 0
+        qk.quant_matmul.launches = rk.rglru_scan.launches = 0
+        t0 = time.perf_counter()
+        reqs = serve(system, [("sd3:basic", inp) for inp in REQUESTS], STEPS)
+        torch.cuda.synchronize()
+        q_wall_s = time.perf_counter() - t0
+        q_launches = qk.quant_matmul.launches
+        q_flash = fa.flash_attention.launches
+        q_others = (lk.lora_matmul.launches + lk.lora_matmul_grouped.launches
+                    + rk.rglru_scan.launches)
+        q_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        q_log = system.coordinator.dispatch_log
+        q_expected, q_shapes = quant_path(q_log, cfg)
+        q_expected_flash, _ = expected_flash(q_log, cfg)
+        segs = [d for d in q_log if d.model_id.startswith("segment:")]
+        if (q_launches != q_expected or not segs
+                or any(d.segment_steps != STEPS for d in segs)):
+            raise AssertionError(
+                f"quant_matmul launched {q_launches} times on the int8 path, "
+                f"expected {q_expected} (1344 per {STEPS}-step segment "
+                f"dispatch + 12 per text batch); dispatches "
+                f"{[(d.model_id, len(d.nodes), d.segment_steps) for d in q_log]}")
+        if q_flash != q_expected_flash or q_others:
+            raise AssertionError(f"int8 path: flash_attention {q_flash} "
+                                 f"(expected {q_expected_flash}), other "
+                                 f"kernels {q_others}")
+        q_images = []
+        for req, f32_img in zip(reqs, fp32_images):
+            img = image_of(system, req)
+            check_image(torch, img, card, f"int8 request {req.rid}")
+            q_images.append(img)
+            e = rel(img, f32_img)
+            if not e < INT8_VS_FP32_REL:
+                raise AssertionError(f"int8 image {req.rid} vs fp32: rel err "
+                                     f"{e} >= {INT8_VS_FP32_REL}")
+            log(f"[path-int8] request {req.rid} done: latency "
+                f"{req.latency:.3f} s on the coordinator's measured timeline; "
+                f"int8 vs fp32 image rel err {e:.3e} < {INT8_VS_FP32_REL}  "
+                f"[{card}]")
+        log(f"[path-int8] 2 full-width sd3:basic requests under int8, {STEPS} "
+            f"steps, wall {q_wall_s:.2f} s (weights drawn and quantized on the "
+            f"card included), peak memory {q_peak_gib:.2f} GiB, quant_matmul "
+            f"launches {q_launches} (expected {q_expected}: "
+            f"{[(d.model_id, len(d.nodes), d.segment_steps) for d in q_log]}), "
+            f"flash_attention launches {q_flash} (expected "
+            f"{q_expected_flash})  [{card}]")
+        # the same two requests, with the script putting the plain version in
+        # the kernel's place (the package has no such switch)
+        qops.quant_matmul = qref.quant_matmul_ref
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain_reqs = serve(system, [("sd3:basic", inp) for inp in REQUESTS],
+                               STEPS)
+            torch.cuda.synchronize()
+            plain_wall_s = time.perf_counter() - t0
+        finally:
+            qops.quant_matmul = qk.quant_matmul
+        for req, img in zip(plain_reqs, q_images):
+            other = image_of(system, req)
+            e = rel(img, other)
+            if not e <= 1e-6:
+                raise AssertionError(f"int8 path, kernel vs plain route: rel "
+                                     f"err {e}")
+            log(f"[path-int8] kernel vs plain route image rel err {e:.2e} <= "
+                f"1e-6, bit-identical: {bool(torch.equal(img, other))}")
+        log(f"[path-int8] the plain route served the same 2 requests in "
+            f"{plain_wall_s:.2f} s (weights loaded)  [{card}]")
+
+        # ------------------- 5q. the kernels at their shapes, timed
+        q_times, q_err = [], 0.0
+        for shape in sorted(q_shapes, key=lambda s: -s[0] * s[1] * s[2]):
+            if shape not in quant_checked:
+                q_err = max(q_err, check_quant(torch, qk, qref, shape))
+                log(f"[kernel] quant_matmul served {shape}: bit-identical")
+            q_times.append(time_quant(torch, qk, qref, qops, shape))
+            log(f"[time] {json.dumps(q_times[-1])}  [{card}]")
+        r_times = []
+        for shape in RGLRU_WIDE:
+            r_times.append(time_rglru(torch, rk, rref, shape))
+            log(f"[time] {json.dumps(r_times[-1])}  [{card}]")
+
+        # ---------------------------- 6q. where the time goes, int8
+        real_rows = qops._quantize_rows
+
+        def named_rows(x2):
+            with torch.profiler.record_function("quantize_rows"):
+                return real_rows(x2)
+
+        qops._quantize_rows = named_rows
+        try:
+            profile_path(torch, system, [("sd3:basic", inp) for inp in REQUESTS],
+                         card, "sd3:basic int8",
+                         {"quant_matmul": "quant_matmul_kernel",
+                          "flash_attention": "flash_fwd_kernel"},
+                         ranges={"activation_quantization": "quantize_rows"})
+        finally:
+            qops._quantize_rows = real_rows
+    finally:
+        set_quant_mode(prev_mode)
+    if quant_mode() != prev_mode:
+        raise AssertionError("the quant mode was not restored")
+    del system, ms, reqs, plain_reqs, q_images, fp32_images, img, other
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ------------------------------------ 4b. full-width multi-tenant path
     ms = ModelSet(family)
     system, adapters = lora_system(ms, "cuda")
@@ -656,6 +1007,7 @@ def main() -> None:
     torch.cuda.synchronize()
     fa.flash_attention.launches = 0
     lk.lora_matmul.launches = lk.lora_matmul_grouped.launches = 0
+    qk.quant_matmul.launches = rk.rglru_scan.launches = 0
     t0 = time.perf_counter()
     reqs = serve(system, MIXED, STEPS)
     torch.cuda.synchronize()
@@ -677,9 +1029,11 @@ def main() -> None:
     if ml_grouped < want_grouped:
         raise AssertionError(f"lora_matmul_grouped launched {ml_grouped} times "
                              f"on the LoRA path, expected >= {want_grouped}")
-    if ml_single:
-        raise AssertionError(f"lora_matmul launched {ml_single} times; it has "
-                             f"no serving path")
+    if ml_single or qk.quant_matmul.launches or rk.rglru_scan.launches:
+        raise AssertionError(f"on the fp32 LoRA path lora_matmul launched "
+                             f"{ml_single} times (it has no serving path), "
+                             f"quant_matmul {qk.quant_matmul.launches}, "
+                             f"rglru_scan {rk.rglru_scan.launches}")
     ml_expected_flash, ml_flash_shapes = expected_flash(log_ml, cfg)
     if ml_flash < ml_expected_flash:
         raise AssertionError(f"flash_attention launched {ml_flash} times on "
@@ -836,6 +1190,14 @@ def main() -> None:
         entry("lora_matmul", lora_src,
               "src/repro/kernels/lora_matmul/kernel.py:133", 0,
               lora_path_err["single"], lora_times["single"], []),
+        entry("quant_matmul",
+              "src/repro_torch/kernels/quant_matmul/csrc/quant_matmul.cu",
+              "src/repro/kernels/quant_matmul/kernel.py:68", q_launches,
+              q_err, q_times[0], q_times[1:]),
+        entry("rglru_scan",
+              "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+              "src/repro/kernels/rglru_scan/kernel.py:61", 0, rglru_err,
+              r_times[0], r_times[1:]),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

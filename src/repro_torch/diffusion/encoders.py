@@ -27,6 +27,7 @@ from repro_torch.nn.layers import (
     grouped_lora_dense,
     init_mlp,
     qdense,
+    quantize_dense,
     rms_norm,
 )
 
@@ -70,6 +71,25 @@ def init_text_encoder(
         "layers": layers,
         "final": torch.ones((d_model,), dtype=dtype, device=dev),
     }
+
+
+# the attention and MLP projections carry nearly all encoder parameters;
+# the embeddings and norms stay as they are
+_QUANT_LAYER_KEYS = ("wq", "wk", "wv", "wo")
+
+
+def quantize_text_params(params: Params) -> Params:
+    """The per-layer projection weights (``wq``/``wk``/``wv``/``wo`` and the
+    MLP's ``w1``/``w2``) quantized per the active ``REPRO_QUANT`` mode (the
+    identity when off), in a copied tree."""
+    layers = []
+    for p in params["layers"]:
+        layer = {k: (quantize_dense(v) if k in _QUANT_LAYER_KEYS else v)
+                 for k, v in p.items()}
+        layer["mlp"] = {k: (quantize_dense(v) if k in ("w1", "w2") else v)
+                        for k, v in p["mlp"].items()}
+        layers.append(layer)
+    return {**params, "layers": layers}
 
 
 def text_encoder_apply(params: Params, token_ids: torch.Tensor,

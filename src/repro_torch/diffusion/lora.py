@@ -12,10 +12,11 @@ Two application modes:
   ``xW + s(xA)B`` per row without materialising ``W'``, which keeps one
   *shared* base-model replica clean while a batch mixes tenants.
 
-The JAX package also quantizes factors on fold (``quantize_lora``,
-``quantize_text_lora``, ``_requant_like``) under ``REPRO_QUANT``.  The
-port's ``quant_mode()`` is always ``"off"`` until the quant slice, and with
-it off those steps are the identity, so they are not here.
+Under ``REPRO_QUANT`` base weights and adapter factors may be quantized
+``{"qw", "qs"}`` dicts.  Folding dequantizes the target, adds the low-rank
+delta in float32 and requantizes in the base's mode (quantize-on-fold), so
+the fold cache keeps the small form; stacking dequantizes the factors for
+the grouped kernel.
 """
 
 from __future__ import annotations
@@ -26,10 +27,50 @@ from typing import Any, Dict, Sequence
 import torch
 
 from repro_torch.diffusion.config import DiTConfig
+from repro_torch.kernels.quant_matmul.ops import (
+    dequantize_weight,
+    is_quantized,
+    quantize_weight,
+)
+from repro_torch.nn.layers import quant_mode
 
 Params = Dict[str, Any]
 
 TARGETS = ("wq", "wk", "wv", "wo")
+
+# ------------------------------------------------- quantization awareness
+
+_FACTOR_KEYS = tuple(f"{t}_{s}" for t in TARGETS for s in ("a", "b"))
+
+
+def _mode_of(q: Params) -> str:
+    return "int8" if q["qw"].dtype == torch.int8 else "fp8"
+
+
+def _requant_like(w: torch.Tensor, base: Params) -> Params:
+    """``w`` quantized the way the quantized ``base`` was."""
+    return quantize_weight(w, _mode_of(base))
+
+
+def quantize_lora(lora: Params) -> Params:
+    """A backbone adapter's A/B factors quantized per the active
+    ``REPRO_QUANT`` mode (the identity when off): the adapter pool then
+    holds the small form."""
+    mode = quant_mode()
+    if mode == "off":
+        return lora
+    return {k: (quantize_weight(v, mode) if k in _FACTOR_KEYS else v)
+            for k, v in lora.items()}
+
+
+def quantize_text_lora(tl: Params) -> Params:
+    """Quantized-factor form of a text-encoder adapter (see
+    :func:`quantize_lora`)."""
+    mode = quant_mode()
+    if mode == "off":
+        return tl
+    return {k: (quantize_weight(v, mode) if k in ("a", "b") else v)
+            for k, v in tl.items()}
 
 
 def init_lora(gen: torch.Generator, cfg: DiTConfig, rank: int = 8,
@@ -64,15 +105,21 @@ def fold_lora(params: Params, lora: Params) -> Params:
     weights.  Purely functional: the original tree is intact, so a shared
     replica can serve other requests.  The delta is cast to the base
     weight's dtype before the add, as the JAX package does: with bf16
-    weights the folded weight is ``W + ΔW`` rounded to bf16."""
+    weights the folded weight is ``W + ΔW`` rounded to bf16.  A quantized
+    target is dequantized, takes the delta in float32 and is requantized
+    in its own mode."""
     scale = lora["scale"]
     new_layers = dict(params["layers"])
     new_img = dict(new_layers["img"])
     for t in TARGETS:
-        delta = torch.einsum("ldr,lre->lde", lora[f"{t}_a"],
-                             lora[f"{t}_b"]) * scale
+        a = dequantize_weight(lora[f"{t}_a"])
+        b = dequantize_weight(lora[f"{t}_b"])
+        delta = torch.einsum("ldr,lre->lde", a, b) * scale
         base = new_layers["img"][t]
-        new_img[t] = base + delta.to(base.dtype)
+        if is_quantized(base):
+            new_img[t] = _requant_like(dequantize_weight(base) + delta, base)
+        else:
+            new_img[t] = base + delta.to(base.dtype)
     new_layers["img"] = new_img
     out = dict(params)
     out["layers"] = new_layers
@@ -112,6 +159,8 @@ def stack_loras(loras: Sequence[Params]) -> Params:
     """
     if not loras:
         raise ValueError("stack_loras needs at least one adapter")
+    loras = [{k: (dequantize_weight(v) if k in _FACTOR_KEYS else v)
+              for k, v in p.items()} for p in loras]
     rank = max(p[f"{TARGETS[0]}_a"].shape[-1] for p in loras)
     out: Params = {"scales": torch.stack([
         torch.as_tensor(p["scale"], dtype=torch.float32) for p in loras])}
@@ -146,11 +195,17 @@ def init_text_lora(gen: torch.Generator, d_model: int, rank: int = 8,
 
 def fold_text_lora(params: Params, tl: Params, sign: float = 1.0) -> Params:
     """Text-encoder params with the adapter folded into the last layer's
-    ``wo`` (functional)."""
-    delta = (tl["a"] @ tl["b"]) * tl["scale"] * sign
+    ``wo`` (functional; a quantized ``wo`` is requantized as in
+    :func:`fold_lora`)."""
+    delta = (dequantize_weight(tl["a"]) @ dequantize_weight(tl["b"])) \
+        * tl["scale"] * sign
     layers = list(params["layers"])
     last = dict(layers[-1])
-    last["wo"] = last["wo"] + delta.to(last["wo"].dtype)
+    wo = last["wo"]
+    if is_quantized(wo):
+        last["wo"] = _requant_like(dequantize_weight(wo) + delta, wo)
+    else:
+        last["wo"] = wo + delta.to(wo.dtype)
     layers[-1] = last
     out = dict(params)
     out["layers"] = layers
@@ -162,6 +217,8 @@ def stack_text_loras(tls: Sequence[Params]) -> Params:
     ``scales [G]`` (ranks zero-padded to the largest)."""
     if not tls:
         raise ValueError("stack_text_loras needs at least one adapter")
+    tls = [{k: (dequantize_weight(v) if k in ("a", "b") else v)
+            for k, v in p.items()} for p in tls]
     rank = max(p["a"].shape[-1] for p in tls)
     return {
         "a": torch.stack([_pad_rank(p["a"], 1, rank) for p in tls]),

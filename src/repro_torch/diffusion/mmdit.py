@@ -12,8 +12,11 @@ latents' dtype (f32), projections against bf16 weights compute in f32
 ``x.dtype`` sit where the JAX package casts.
 
 With ``lora_stack``/``lora_idx``, the image-stream q/k/v/o projections
-run the grouped multi-adapter form (:func:`_lora_proj`).  The ControlNet
-branch and the sequence-sharded forward are not ported yet.
+run the grouped multi-adapter form (:func:`_lora_proj`).  Under
+``REPRO_QUANT`` the stream projections are quantized dicts
+(:func:`quantize_mmdit_params`) and take the quantized route of
+:func:`~repro_torch.nn.layers.qdense`.  The ControlNet branch and the
+sequence-sharded forward are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from repro_torch.nn.layers import (
     grouped_lora_dense,
     modulate,
     qdense,
+    quantize_dense,
     rms_norm,
     timestep_embedding,
 )
@@ -135,6 +139,24 @@ def mmdit_block(
     return x, c
 
 
+# ------------------------------------------------------------ quantization
+
+# the per-layer stream projections carry almost all backbone parameters;
+# the embeddings and the final head stay as they are (small, I/O-critical)
+_QUANT_STREAM_KEYS = ("ada", "wq", "wk", "wv", "wo", "w1", "w2")
+
+
+def quantize_mmdit_params(params: Params) -> Params:
+    """The layer-stacked stream projection weights quantized per the active
+    ``REPRO_QUANT`` mode (the identity when off), in a copied tree: each
+    ``[L, K, N]`` leaf becomes a ``{"qw": [L, K, N], "qs": [L, 1, N]}``
+    dict that the layer loop slices like the tensor it replaces."""
+    layers = {stream: {k: (quantize_dense(v) if k in _QUANT_STREAM_KEYS
+                           else v) for k, v in sp.items()}
+              for stream, sp in params["layers"].items()}
+    return {**params, "layers": layers}
+
+
 # ---------------------------------------------------------------- backbone
 
 def init_mmdit(gen: torch.Generator, cfg: DiTConfig) -> Params:
@@ -179,8 +201,13 @@ def _embed_inputs(params: Params, cfg: DiTConfig, latents, t, text_emb):
 
 
 def _layer(layers: Params, i: int) -> Params:
-    """Layer ``i`` of the stacked per-layer tree (views, no copies)."""
-    return {stream: {k: v[i] for k, v in sp.items()}
+    """Layer ``i`` of the stacked per-layer tree (views, no copies).  A
+    quantized leaf is sliced leaf by leaf: ``qw [L, K, N]`` and
+    ``qs [L, 1, N]`` give layer ``i``'s ``[K, N]`` and ``[1, N]``, as the
+    JAX package's layer scan slices its ``xs``."""
+    return {stream: {k: ({q: t[i] for q, t in v.items()}
+                         if isinstance(v, dict) else v[i])
+                     for k, v in sp.items()}
             for stream, sp in layers.items()}
 
 

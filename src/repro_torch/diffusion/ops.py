@@ -19,9 +19,13 @@ LoRA adapters apply two ways: folded into the backbone's weights once per
 ``(model_id, patch_ids)`` placement (``fold_patches``, when every request
 of a batch carries the same adapter), or per row against the shared base
 weights through the grouped ``lora_matmul`` kernel
-(``execute_batch_multilora``, when a batch mixes tenants).  Single-device
-only: ControlNet, quantized forwards, donation and the sharded plane are
-not ported yet.
+(``execute_batch_multilora``, when a batch mixes tenants).
+
+Under ``REPRO_QUANT=int8|fp8`` every load quantizes the projection weights
+(the model's own draw and a caller's ``weights`` alike; quantizing a
+quantized weight is the identity), and every fold requantizes, so the
+components and the fold cache hold the small form.  Single-device only:
+ControlNet, donation and the sharded plane are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from repro_torch.diffusion.config import DiffusionFamily, DiTConfig
 from repro_torch.diffusion.encoders import (
     init_text_encoder,
     init_vae,
+    quantize_text_params,
     stable_hash,
     text_encoder_apply,
     tokenize_batch,
@@ -48,11 +53,17 @@ from repro_torch.diffusion.lora import (
     fold_text_lora,
     init_lora,
     init_text_lora,
+    quantize_lora,
+    quantize_text_lora,
     randomize_lora,
     stack_loras,
     stack_text_loras,
 )
-from repro_torch.diffusion.mmdit import init_mmdit, mmdit_apply
+from repro_torch.diffusion.mmdit import (
+    init_mmdit,
+    mmdit_apply,
+    quantize_mmdit_params,
+)
 from repro_torch.diffusion.sampler import denoise_step, fused_cfg_velocity
 from repro_torch.weights import to_device
 
@@ -209,7 +220,7 @@ class TextEncoder(Model):
             params = init_text_encoder(
                 _generator(dev, self.model_id), _TOY_VOCAB, cfg.text_dim,
                 n_layers=2, n_heads=4, max_len=cfg.text_tokens)
-        return {"params": params, "device": dev}
+        return {"params": quantize_text_params(params), "device": dev}
 
     def fold_patches(
         self,
@@ -221,7 +232,10 @@ class TextEncoder(Model):
         for pc in patch_components:
             if "text_lora" in pc:
                 params = fold_text_lora(params, pc["text_lora"])
-        return {**components, "params": params}
+        # quantize-on-fold: the backend's fold cache stores this copy, so it
+        # carries the active REPRO_QUANT form even when the base components
+        # predate a mode flip
+        return {**components, "params": quantize_text_params(params)}
 
     def execute_batch_multilora(
         self,
@@ -274,6 +288,7 @@ class TextEncoder(Model):
             lora_rank=8,
             lora_flops_per_rank=4.0 * f.text_tokens * 4096,
             lora_bytes_per_adapter=4.0 * 4096 * 8,
+            quantizable=True,            # qdense projections (REPRO_QUANT)
         )
 
 
@@ -305,7 +320,8 @@ class DiffusionBackbone(Model):
             params = to_device(self.weights, dev)
         else:
             params = init_mmdit(_generator(dev, self.model_id), cfg)
-        return {"params": params, "cfg": cfg, "device": dev}
+        return {"params": quantize_mmdit_params(params), "cfg": cfg,
+                "device": dev}
 
     def fold_patches(
         self,
@@ -313,11 +329,13 @@ class DiffusionBackbone(Model):
         patches: List[Model],
         patch_components: List[Dict[str, Any]],
     ) -> Dict[str, Any]:
-        """LoRA fold, done ONCE per (model, patch set) by the backend."""
+        """LoRA fold, done ONCE per (model, patch set) by the backend.  The
+        folded copy the backend caches carries the active ``REPRO_QUANT``
+        form (quantize-on-fold)."""
         params = components["params"]
         for pc in patch_components:
             params = fold_lora(params, pc["lora"])
-        return {**components, "params": params}
+        return {**components, "params": quantize_mmdit_params(params)}
 
     def velocity(
         self,
@@ -443,6 +461,10 @@ class DiffusionBackbone(Model):
             lora_flops_per_rank=16.0 * f.n_layers_real * f.image_tokens
             * f.d_model_real,
             lora_bytes_per_adapter=16.0 * f.n_layers_real * f.d_model_real * 8,
+            # stream projections quantize (REPRO_QUANT): the profiles price
+            # int8 forwards at the doubled issue rate and the halved weight
+            # stream
+            quantizable=True,
         )
 
     def build_segment(self, controlnets: List[Model],
@@ -706,6 +728,8 @@ class DenoiseSegment(Model):
             lora_rank=b.lora_rank,
             lora_flops_per_rank=b.lora_flops_per_rank,
             lora_bytes_per_adapter=b.lora_bytes_per_adapter,
+            # the segment is the backbone's steps: it quantizes as they do
+            quantizable=True,
         )
 
 
@@ -733,12 +757,18 @@ class LoRAAdapter(Model):
     def load(self, device: Any = None) -> Dict[str, Any]:
         dev = _device(device)
         if self.weights is not None:
-            return to_device(self.weights, dev)
-        gen = _generator(dev, self.model_id)
-        cfg = self.family.toy
-        lora = randomize_lora(gen, init_lora(gen, cfg, rank=self.rank))
-        return {"lora": lora,
-                "text_lora": init_text_lora(gen, cfg.text_dim, rank=self.rank)}
+            comps = to_device(self.weights, dev)
+        else:
+            gen = _generator(dev, self.model_id)
+            cfg = self.family.toy
+            comps = {"lora": randomize_lora(gen, init_lora(gen, cfg,
+                                                           rank=self.rank)),
+                     "text_lora": init_text_lora(gen, cfg.text_dim,
+                                                 rank=self.rank)}
+        # quantized factors (REPRO_QUANT): the adapter pool's byte budget
+        # sees the small form
+        return {"lora": quantize_lora(comps["lora"]),
+                "text_lora": quantize_text_lora(comps["text_lora"])}
 
     def execute(self, model_components: Dict[str, Any], **kw: Any) -> Dict[str, Any]:
         return {"adapter_weights": model_components["lora"]}

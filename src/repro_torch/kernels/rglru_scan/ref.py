@@ -1,0 +1,53 @@
+"""Plain PyTorch version of the RG-LRU scan, in the JAX package's
+formulation: ``h_t = a_t h_{t-1} + sqrt(max(1 - a_t^2, 0)) x_t`` as a
+log-depth associative scan over time of the pairs ``(a_t, gated x_t)``
+under ``(a1, b1) . (a2, b2) = (a1 a2, b1 a2 + b2)``, with the odd/even
+recursion of ``jax.lax.associative_scan``.  Elementwise float32 throughout;
+the output is in ``x``'s dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+Pair = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _combine(c1: Pair, c2: Pair) -> Pair:
+    a1, b1 = c1
+    a2, b2 = c2
+    return a1 * a2, b1 * a2 + b2
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """``even`` at the even time steps, ``odd`` at the odd ones."""
+    shape = list(even.shape)
+    shape[1] += odd.shape[1]
+    out = even.new_empty(shape)
+    out[:, 0::2] = even
+    out[:, 1::2] = odd
+    return out
+
+
+def _scan(a: torch.Tensor, b: torch.Tensor) -> Pair:
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    # combine adjacent pairs, scan the half-length sequence recursively
+    odd = _scan(*_combine((a[:, 0:-1:2], b[:, 0:-1:2]),
+                          (a[:, 1::2], b[:, 1::2])))
+    head = odd if n % 2 else (odd[0][:, :-1], odd[1][:, :-1])
+    even = _combine(head, (a[:, 2::2], b[:, 2::2]))
+    even = (torch.cat([a[:, :1], even[0]], 1),
+            torch.cat([b[:, :1], even[1]], 1))
+    return _interleave(even[0], odd[0]), _interleave(even[1], odd[1])
+
+
+def rglru_ref(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``[B, T, D]`` decay gates and inputs -> ``[B, T, D]`` states."""
+    af = a.float()
+    xf = x.float() * torch.sqrt(torch.clamp(1.0 - af * af, min=0.0))
+    _, h = _scan(af, xf)
+    return h.to(x.dtype)

@@ -21,6 +21,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.lora_matmul.ops import lora_apply_grouped
+from repro_torch.kernels.quant_matmul.ops import (
+    dequantize_weight,
+    is_quantized,
+    quant_apply,
+    quantize_weight,
+)
 
 Params = Dict[str, Any]
 
@@ -53,18 +59,52 @@ def flash_attention_enabled() -> bool:
 
 # ------------------------------------------------- quantized-forward routing
 #
-# The port has no quantized forwards yet (the quant slice adds them with
-# the ``quant_matmul`` kernel), so every projection is the plain route and
-# the profiles price unquantized forwards.
+# Weight quantization (``REPRO_QUANT=int8|fp8|off``, default off), read at
+# import as in the JAX package.  The mode is consulted when parameters are
+# materialised (model load, LoRA fold), not inside the applies: those are
+# structure-driven, taking the quantized route for a ``{"qw", "qs"}`` dict
+# (see :mod:`repro_torch.kernels.quant_matmul.ops`) and the plain route
+# for a tensor.
+
+_QUANT_MODES = ("off", "int8", "fp8")
+_quant_mode: str = os.environ.get("REPRO_QUANT", "off").lower()
+if _quant_mode in ("", "0", "false"):
+    _quant_mode = "off"
+if _quant_mode not in _QUANT_MODES:
+    raise ValueError(
+        f"REPRO_QUANT={_quant_mode!r}: expected one of {_QUANT_MODES}")
+
+
+def set_quant_mode(mode: str) -> str:
+    """Set the weight-quantization mode (``off``/``int8``/``fp8``);
+    returns the previous mode.  Takes effect on the next model load or
+    LoRA fold: components already materialised keep their form."""
+    global _quant_mode
+    if mode not in _QUANT_MODES:
+        raise ValueError(f"quant mode {mode!r}: expected one of {_QUANT_MODES}")
+    prev = _quant_mode
+    _quant_mode = mode
+    return prev
 
 
 def quant_mode() -> str:
-    return "off"
+    return _quant_mode
 
 
-def qdense(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Dense projection ``h @ w`` with JAX's dtype promotion (the plain
-    weight route of the JAX package's ``qdense``)."""
+def quantize_dense(w: Any) -> Any:
+    """Quantize one dense projection weight per the active mode (the
+    identity when ``off`` or already quantized)."""
+    if _quant_mode == "off":
+        return w
+    return quantize_weight(w, _quant_mode)
+
+
+def qdense(h: torch.Tensor, w: Any) -> torch.Tensor:
+    """Dense projection: a ``[d_in, d_out]`` tensor weight computes ``h @ w``
+    with JAX's dtype promotion; a quantized dict takes the quantized route
+    (float32 out, as in the JAX package)."""
+    if is_quantized(w):
+        return quant_apply(h, w["qw"], w["qs"])
     dt = torch.promote_types(h.dtype, w.dtype)
     return h.to(dt) @ w.to(dt)
 
@@ -73,7 +113,7 @@ def qdense(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def grouped_lora_dense(
     h: torch.Tensor,            # [B, S, d_in]
-    w: torch.Tensor,            # [d_in, d_out]
+    w: Any,                     # [d_in, d_out], or a quantized dict
     a: torch.Tensor,            # [G, d_in, r]  stacked adapter A factors
     b: torch.Tensor,            # [G, r, d_out] stacked adapter B factors
     idx: torch.Tensor,          # [B] int32 adapter per batch row; -1 = none
@@ -83,15 +123,10 @@ def grouped_lora_dense(
     ``h @ w + scales[idx] * (h @ a[idx]) @ b[idx]``, one forward for a batch
     mixing G tenants, through the grouped ``lora_matmul`` kernel (its plain
     version for CPU tensors, where rows with ``idx < 0`` equal
-    :func:`qdense` bit for bit).
-
-    The JAX package dequantizes ``w`` first; the port has no quantized
-    weights until the quant slice, so dequantization is the identity and a
-    weight that is not a plain tensor is refused."""
-    if not isinstance(w, torch.Tensor):
-        raise TypeError("grouped_lora_dense: quantized weights reach the "
-                        "grouped LoRA route only with the quant slice, which "
-                        "the port does not have yet")
+    :func:`qdense` of a tensor weight bit for bit).  A quantized base is
+    dequantized first, as in the JAX package: the grouped kernel needs the
+    dense weight."""
+    w = dequantize_weight(w)
     bsz, s, d_in = h.shape
     rows_idx = idx.to(torch.int32).repeat_interleave(s)
     out = lora_apply_grouped(h.reshape(bsz * s, d_in), w, a, b, rows_idx,

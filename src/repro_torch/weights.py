@@ -3,8 +3,11 @@
 :func:`from_numpy` turns a parameter tree given as numpy arrays (nested
 dicts and lists, including the layer-stacked ``[L, ...]`` MMDiT leaves) into
 the same tree of torch tensors on a given device and, optionally, dtype.
-bfloat16 leaves (numpy's ``ml_dtypes`` extension type) come across exactly.
-A port model takes such a tree as its ``weights`` in place of its own init.
+bfloat16 and float8_e4m3fn leaves (numpy's ``ml_dtypes`` extension types)
+come across exactly, as do int8 ones.  A quantized ``{"qw", "qs"}`` weight
+keeps its types whatever ``dtype`` asks: its int8 or fp8 values and float32
+scales are the weight.  A port model takes such a tree as its ``weights``
+in place of its own init.
 """
 
 from __future__ import annotations
@@ -14,9 +17,13 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.quant_matmul.ops import is_quantized
+
 
 def from_numpy(tree: Any, device: Any = "cpu",
                dtype: Optional[torch.dtype] = None) -> Any:
+    if is_quantized(tree):
+        return {k: from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, dict):
         return {k: from_numpy(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -24,6 +31,9 @@ def from_numpy(tree: Any, device: Any = "cpu",
     arr = np.asarray(tree)
     if arr.dtype.name == "bfloat16":     # exact: bf16 widens to f32 losslessly
         t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    elif arr.dtype.name == "float8_e4m3fn":   # the same bits, reinterpreted
+        t = torch.from_numpy(arr.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(np.array(arr))   # a writable copy
     if dtype is not None and t.is_floating_point():

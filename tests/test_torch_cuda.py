@@ -120,3 +120,87 @@ def test_lora_kernels_refuse_what_they_do_not_take(card):
         lk.lora_matmul_grouped(x, w, a, b, torch.zeros(8, dtype=torch.int64,
                                                        device=card),
                                torch.ones(1, device=card))
+
+
+# ------------------------------------------------------- int8 quant matmul
+# Bit for bit: the int32 accumulation is exact and the scales multiply in
+# the same order in the kernel and its plain version.
+
+QUANT_GRID = [(1, 8, 8), (5, 24, 40), (33, 128, 96), (128, 100, 200),
+              (4, 1536, 9216), (1332, 1536, 1536), (300, 6144, 1540)]
+
+
+def _quant_inputs(card, m, k, n, seed=2):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device=card,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=gen, device=card,
+                       dtype=torch.int8)
+    xs = torch.rand((m, 1), generator=gen, device=card) / 50
+    ws = torch.rand((1, n), generator=gen, device=card) / 50
+    return xq, wq, xs, ws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", QUANT_GRID)
+def test_quant_matmul_matches_plain_version(card, m, k, n):
+    from repro_torch.kernels.quant_matmul.kernel import quant_matmul
+    from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+
+    args = _quant_inputs(card, m, k, n)
+    before = quant_matmul.launches
+    out = quant_matmul(*args)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 1
+    assert out.dtype == torch.float32 and tuple(out.shape) == (m, n)
+    assert torch.equal(out, quant_matmul_ref(*args))
+
+
+@pytest.mark.cuda
+def test_quant_matmul_accumulates_in_int32(card):
+    from repro_torch.kernels.quant_matmul.kernel import quant_matmul
+
+    k = 16384
+    xq = torch.full((4, k), 127, dtype=torch.int8, device=card)
+    wq = torch.full((k, 8), 127, dtype=torch.int8, device=card)
+    ones = torch.ones((4, 1), device=card), torch.ones((1, 8), device=card)
+    out = quant_matmul(xq, wq, *ones)
+    assert torch.equal(out, torch.full_like(out, 127.0 * 127.0 * k))
+
+
+@pytest.mark.cuda
+def test_quant_matmul_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels.quant_matmul.kernel import quant_matmul
+
+    xq, wq, xs, ws = _quant_inputs(card, 8, 32, 16)
+    with pytest.raises(ValueError, match="device"):
+        quant_matmul(xq, wq.cpu(), xs, ws)
+    with pytest.raises(ValueError, match="int8"):
+        quant_matmul(xq.float(), wq, xs, ws)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_matmul(xq, wq.t(), xs, ws.reshape(1, 16))
+    with pytest.raises(ValueError, match="shapes"):
+        quant_matmul(xq, wq, xs, ws[:, :8].contiguous())
+
+
+# ------------------------------------------------------------ RG-LRU scan
+# Tolerance 2e-5 (the JAX package's kernel grid): the kernel steps through
+# time, the plain version is a log-depth associative scan.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,d", [(2, 128, 128), (1, 200, 96), (3, 64, 256),
+                                   (2, 300, 50), (1, 8192, 2560)])
+def test_rglru_kernel_matches_plain_version(card, b, t, d):
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan
+    from repro_torch.kernels.rglru_scan.ref import rglru_ref
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    a = torch.sigmoid(torch.randn((b, t, d), generator=gen, device=card))
+    x = torch.randn((b, t, d), generator=gen, device=card)
+    before = rglru_scan.launches
+    out = rglru_scan(a, x)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before + 1
+    torch.testing.assert_close(out, rglru_ref(a, x), atol=2e-5, rtol=2e-5)
+    with pytest.raises(ValueError, match="float32"):
+        rglru_scan(a.double(), x.double())

@@ -37,6 +37,23 @@ LORA_MODULES = [
     "repro_torch.diffusion.ops",
 ]
 
+# the quantized forward and the RG-LRU scan: both kernels' wrappers, plain
+# versions and helpers, and the modules that quantize on load and fold
+QUANT_MODULES = [
+    "repro_torch.kernels.quant_matmul",
+    "repro_torch.kernels.quant_matmul.kernel",
+    "repro_torch.kernels.quant_matmul.ops",
+    "repro_torch.kernels.quant_matmul.ref",
+    "repro_torch.kernels.rglru_scan.kernel",
+    "repro_torch.kernels.rglru_scan.ops",
+    "repro_torch.kernels.rglru_scan.ref",
+    "repro_torch.nn.layers",
+    "repro_torch.diffusion.mmdit",
+    "repro_torch.diffusion.encoders",
+    "repro_torch.diffusion.lora",
+    "repro_torch.weights",
+]
+
 _PROBE = """
 import importlib, sys
 
@@ -60,8 +77,8 @@ def _src():
         os.path.abspath(__file__))), "src")
 
 
-@pytest.mark.parametrize("modules", [MODULES, LORA_MODULES],
-                         ids=["main-path", "lora"])
+@pytest.mark.parametrize("modules", [MODULES, LORA_MODULES, QUANT_MODULES],
+                         ids=["main-path", "lora", "quant-rglru"])
 def test_port_imports_without_jax_or_repro(modules):
     env = dict(os.environ, PYTHONPATH=_src())
     out = subprocess.run([sys.executable, "-c", _PROBE, *modules], env=env,

@@ -25,6 +25,7 @@ from repro_torch.diffusion import lora as tl
 from repro_torch.kernels.lora_matmul import kernel as tk
 from repro_torch.kernels.lora_matmul.ops import lora_apply, lora_apply_grouped
 from repro_torch.kernels.lora_matmul.ref import lora_matmul_masked_ref
+from repro_torch.kernels.quant_matmul.ops import dequantize_weight, quantize_weight
 from repro_torch.nn.layers import grouped_lora_dense, qdense
 from repro_torch.weights import from_numpy
 
@@ -119,9 +120,12 @@ def test_grouped_lora_dense_rows_follow_batch_index():
     for row, g in ((0, 1), (2, 0)):
         want = lora_apply(th[row], tw, ta[g], tb[g], scale=float(scales[g]))
         torch.testing.assert_close(out[row], want, rtol=1e-6, atol=1e-6)
-    with pytest.raises(TypeError, match="quant"):
-        grouped_lora_dense(th, {"qw": tw, "qs": tw}, ta, tb,
-                           torch.tensor([0, 0, 0]), scales)
+    # a quantized base is dequantized first, as in the JAX package
+    q = quantize_weight(tw, "int8")
+    idx = torch.tensor([0, -1, 1])
+    assert torch.equal(grouped_lora_dense(th, q, ta, tb, idx, scales),
+                       grouped_lora_dense(th, dequantize_weight(q), ta, tb,
+                                          idx, scales))
 
 
 def test_cpu_route_launches_no_kernel_and_checks_indices():
