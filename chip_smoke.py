@@ -9,9 +9,15 @@ Phases (any failed check raises, and the script exits non-zero):
    kernel from the checkout's sources (one ``nvcc`` per source, all four
    started together, into ``build/``), with ptxas's registers and spills.
 2. Each kernel against its plain PyTorch version on the card.  Flash
-   attention: the JAX package's kernel grid (f32 atol 2e-5, bf16 3e-2) and
-   the full-width path shapes at f32 (atol 2e-5: both sides compute in f32
-   FMA and differ only in the order of their sums; TF32 is off).  The LoRA
+   attention: the JAX package's kernel grid (f32 atol 2e-5, bf16 3e-2),
+   causal and window bands at head dims 64 and 1024 (wholly masked tiles
+   and chunks, rows with no key), 17000 keys at head dim 1024 (a merge of
+   266 chunks), and the four full-width path shapes at
+   f32, (48 | 96 | 144, 4429, 64) and (4 | 8, 333, 1024) (atol 2e-5: the
+   kernel's 3xTF32 products keep about 20 bits, the plain version's f32
+   FMAs 24; TF32 is off in the plain version).  The split-KV route's two
+   kernels on their own: the partials against ``attention_partial_ref``
+   and the merge against ``merge_partials_ref`` (f32 2e-5).  The LoRA
    kernels: the JAX package's grids (``tests/test_kernels.py``, f32
    atol = rtol = 1e-4, bf16 1.5e-1; ``tests/test_multilora.py``, f32 1e-4,
    with idx = -1 rows and G*r up to 160) and the three full-width path
@@ -39,14 +45,21 @@ Phases (any failed check raises, and the script exits non-zero):
    steps).  The kernel launch counts are set to 0 just before it and read
    just after: flash attention must have run 24 times per step of every
    backbone batch plus twice per text-encoder batch.  Images must be
-   (1, 1024, 1024, 3), finite, within [-1, 1].
+   (1, 1024, 1024, 3), finite, within [-1, 1].  The same two requests are
+   then served again through the plain attention route
+   (``set_flash_attention(False)``, restored afterwards): each image served
+   through the kernel lies within ``KERNEL_VS_PLAIN_REL`` of it.
 5. Flash attention at the exact shapes the basic path gave it, held against
    the plain version and timed (CUDA events, median of 10 after 2 warm-ups)
    beside the plain version, ``scaled_dot_product_attention`` (a yardstick
-   the port never calls) and the bound.
+   the port never calls) and two bounds: ``bound_ms`` at the 3xTF32 rate
+   the kernel runs (495 / 3 TFLOP/s) and, on the ``[time]`` lines only,
+   ``bound_f32_fma_ms`` at the f32 rate outside the tensor cores
+   (67 TFLOP/s).
 6. Where the time goes on the basic path: its two requests served again on
    the warm system under ``torch.profiler``; device time by kernel, the
-   attention kernel's share, and the card's idle share of the wall time.
+   attention kernels' share (``FLASH_KERNELS``: every CUDA kernel the flash
+   wrapper launches), and the card's idle share of the wall time.
 4b. The LoRA path: sd3:lora:tenantA, sd3:lora:tenantB and sd3:basic served
    together at full width, 4 steps, on one card with the multilora
    scheduler and the passes of the JAX package's multi-tenant test
@@ -75,7 +88,7 @@ Phases (any failed check raises, and the script exits non-zero):
    profiler; the grouped kernel's share of device time and the idle share.
 5c. Flash attention at each shape the LoRA path gave it that phase 5 did
    not cover (the three-request batch), held against the plain version
-   (f32 atol 2e-5) and timed as in phase 5.
+   (f32 atol 2e-5) and timed as in phase 5, both bounds included.
 4q. The basic path under ``set_quant_mode("int8")`` (restored afterwards, so
    later phases run "off"): phase 4's two requests on fresh weights from
    the same seeds, quantized on load.  Counts set to 0 just before and read
@@ -122,10 +135,20 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and the
-# f32 rate outside the tensor cores, which bounds an f32 FMA kernel.
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, the f32
+# rate outside the tensor cores (which bounds an f32 FMA kernel) and the
+# tensor cores' rates.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12,
+              "tf32": 495e12}
+# every CUDA kernel the flash-attention wrapper launches, by route: the
+# CUDA-core template, the D = 64 tensor-core tiles, the D = 1024 split-KV
+# grid and its merge
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_mma64_kernel",
+                 "flash_splitkv_kernel", "flash_merge_kernel")
+# the full-width fp32 image served through the kernel against the same
+# request served through the plain attention route, relative
+KERNEL_VS_PLAIN_REL = 1e-3
 
 GRID = [  # (BH, Sq, Sk, D), causal, window — tests/test_kernels.py's grid
     ((2, 128, 128, 64), False, None),
@@ -211,10 +234,15 @@ def bound(nbytes: float, flops: float, dtype_name: str) -> tuple:
 def attention_bound_ms(bh, sq, sk, d, dtype_name) -> tuple:
     """Least time for one attention call: each of q, k, v read once and o
     written once, against 4*BH*Sq*Sk*D operations at the peak for the
-    inputs' type."""
+    inputs' type; for f32, at the rate of three TF32 passes (the kernel's
+    f32-accurate products).  Returns (ms, bound_by, ms at the f32 FMA
+    rate)."""
     elem = 4 if dtype_name == "float32" else 2
-    return bound(elem * bh * d * (2 * sq + 2 * sk), 4.0 * bh * sq * sk * d,
-                 dtype_name)
+    nbytes, flops = elem * bh * d * (2 * sq + 2 * sk), 4.0 * bh * sq * sk * d
+    if dtype_name != "float32":
+        return (*bound(nbytes, flops, dtype_name), None)
+    return (*bound(nbytes, 3 * flops, "tf32"),
+            bound(nbytes, flops, "float32")[0])
 
 
 def attention_inputs(torch, shape, dtype, seed=0):
@@ -241,7 +269,7 @@ def time_attention(torch, fa, shape, dtype, reps=10) -> dict:
 
     q, k, v = attention_inputs(torch, shape, dtype, seed=1)
     dname = str(dtype).replace("torch.", "")
-    bound_ms, bound_by = attention_bound_ms(*shape, dname)
+    bound_ms, bound_by, _ = attention_bound_ms(*shape, dname)
     return {
         "shape": "BH=%d,Sq=%d,Sk=%d,D=%d,%s" % (*shape, dname),
         "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v), reps),
@@ -251,6 +279,38 @@ def time_attention(torch, fa, shape, dtype, reps=10) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
     }
+
+
+def log_attention_time(timing, shape, card) -> None:
+    """A ``[time]`` line of :func:`time_attention`'s numbers with the f32
+    FMA bound beside them (f32 shapes; the ``kernels`` line leaves it out)."""
+    f32_fma_ms = attention_bound_ms(*shape, "float32")[2]
+    log(f"[time] {json.dumps({**timing, 'bound_f32_fma_ms': f32_fma_ms})}"
+        f"  [{card}]")
+
+
+def check_split_kv(torch, fa, fref, shape, causal, window, atol=2e-5) -> float:
+    """The split-KV route's kernels on their own: the partials against
+    ``attention_partial_ref``, and the merge of the plain partials against
+    ``merge_partials_ref`` (atol = rtol: the partial sums are unnormalised,
+    up to 64 times an element of v).  Returns the largest |error|."""
+    q, k, v = attention_inputs(torch, shape, torch.float32, seed=2)
+    o, m, l = fa.split_kv_partials(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    wo, wm, wl = fref.attention_partial_ref(
+        q, k, v, chunk=fa.SPLIT_KV_CHUNK, causal=causal, window=window)
+    if not torch.equal(l > 0, wl > 0) or not torch.equal(m[wl == 0], wm[wl == 0]):
+        raise AssertionError(f"split-KV partials {shape}: chunks with no key "
+                             f"of a row differ from the plain version's")
+    what = f"split-KV {shape} causal={causal} window={window}"
+    err = max(close_or_raise(f"{what} o", o, wo, atol, atol),
+              close_or_raise(f"{what} m", m, wm, atol, atol),
+              close_or_raise(f"{what} l", l, wl, atol, atol))
+    merged = fa.split_kv_merge(wo, wm, wl)
+    torch.cuda.synchronize()
+    return max(err, close_or_raise(f"{what} merge", merged,
+                                   fref.merge_partials_ref(wo, wm, wl),
+                                   atol, atol))
 
 
 # ------------------------------------------------------------------ LoRA
@@ -484,8 +544,9 @@ def profile_path(torch, system, subs, card, label, kernels,
                  ranges=None) -> dict:
     """Serve ``subs`` again on the warm system under the profiler; device
     time by kernel, the named kernels' shares and the idle share of the
-    window.  ``ranges`` names ``record_function`` ranges whose kernels'
-    device time is reported as a share too."""
+    window.  ``kernels`` maps a name to the substrings of the CUDA kernel
+    names it sums; ``ranges`` names ``record_function`` ranges whose
+    kernels' device time is reported as a share too."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -513,9 +574,12 @@ def profile_path(torch, system, subs, card, label, kernels,
            "wall_ms": wall_ms,
            "device_busy_ms": busy_ms if rows else "not measured",
            "idle_share": 1 - busy_ms / wall_ms if rows else "not measured"}
-    for name, key in kernels.items():
-        ms = sum(r[0] for r in rows if key in r[2])
+    for name, keys in kernels.items():
+        by_key = {key: sum(r[0] for r in rows if key in r[2]) for key in keys}
+        ms = sum(by_key.values())
         out[f"{name}_share_of_busy"] = ms / busy_ms if rows else "not measured"
+        if len(keys) > 1:
+            out[f"{name}_ms_by_kernel"] = by_key
     for name, key in (ranges or {}).items():
         ms = sum((e.device_time_total or 0) / 1e3 for e in prof.key_averages()
                  if e.key == key and e.device_type.name == "CPU")
@@ -624,6 +688,7 @@ def main() -> None:
     from repro_torch.diffusion import REAL, SD3, ModelSet, make_basic_workflow
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.lora_matmul import kernel as lk
     from repro_torch.kernels.lora_matmul import ref as lref
     from repro_torch.kernels.quant_matmul import kernel as qk
@@ -631,7 +696,7 @@ def main() -> None:
     from repro_torch.kernels.quant_matmul import ref as qref
     from repro_torch.kernels.rglru_scan import kernel as rk
     from repro_torch.kernels.rglru_scan import ref as rref
-    from repro_torch.nn.layers import quant_mode, set_quant_mode
+    from repro_torch.nn.layers import quant_mode, set_flash_attention, set_quant_mode
 
     t_start = time.perf_counter()
     f32, bf16 = torch.float32, torch.bfloat16
@@ -666,11 +731,35 @@ def main() -> None:
             err = check_attention(torch, fa, shape, causal, window, dtype, atol)
             log(f"[kernel] grid {shape} causal={causal} window={window} "
                 f"{dtype}: max|err| {err:.2e} <= {atol}")
+    # the tensor-core tiles (f32, D 64) and the split-KV grid (f32, D 1024)
+    # under causal and window bands: wholly masked tiles and chunks, ragged
+    # edges, rows with no key, and a merge of 266 chunks
+    for shape, causal, window in (((3, 500, 500, 64), True, None),
+                                  ((2, 300, 300, 64), True, 37),
+                                  ((1, 200, 150, 64), True, 1),
+                                  ((3, 100, 77, 1024), False, None),
+                                  ((2, 333, 333, 1024), True, 70),
+                                  ((2, 333, 333, 1024), False, 40),
+                                  ((1, 200, 150, 1024), True, 1),
+                                  ((1, 16, 17000, 1024), False, None)):
+        err = check_attention(torch, fa, shape, causal, window, f32, 2e-5)
+        log(f"[kernel] bands {shape} causal={causal} window={window} "
+            f"float32: max|err| {err:.2e} <= 2e-05")
     path_err = 0.0
-    for shape in ((48, 4429, 4429, 64), (4, 333, 333, 1024)):
+    for shape in ((48, 4429, 4429, 64), (96, 4429, 4429, 64),
+                  (144, 4429, 4429, 64), (4, 333, 333, 1024),
+                  (8, 333, 333, 1024)):
         err = check_attention(torch, fa, shape, False, None, f32, 2e-5)
         path_err = max(path_err, err)
         log(f"[kernel] path {shape} float32: max|err| {err:.2e} <= 2e-05")
+    for shape, causal, window in (((4, 333, 333, 1024), False, None),
+                                  ((8, 333, 333, 1024), False, None),
+                                  ((2, 333, 333, 1024), True, 70),
+                                  ((1, 200, 150, 1024), True, 1),
+                                  ((1, 16, 17000, 1024), False, None)):
+        err = check_split_kv(torch, fa, fref, shape, causal, window)
+        log(f"[kernel] split-KV partials and merge {shape} causal={causal} "
+            f"window={window}: max|err| {err:.2e} (atol = rtol = 2e-05)")
 
     for shape in LORA_GRID:
         for types, tol in (((f32,) * 3, 1e-4), ((bf16,) * 3, 1.5e-1)):
@@ -868,6 +957,34 @@ def main() -> None:
         f"{wall_s:.2f} s (weights drawn on the card included), peak memory "
         f"{peak_gib:.2f} GiB, flash_attention launches {launches} "
         f"(expected {expected})  [{card}]")
+    # the same requests through the plain attention route: the kernel's
+    # 3xTF32 products must not move the served image
+    prev_flash = set_flash_attention(False)
+    try:
+        before = fa.flash_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_attn = serve(system, [("sd3:basic", inp) for inp in REQUESTS],
+                           STEPS)
+        torch.cuda.synchronize()
+        plain_attn_s = time.perf_counter() - t0
+        if fa.flash_attention.launches != before:
+            raise AssertionError("the plain attention route launched the "
+                                 "flash-attention kernel")
+    finally:
+        set_flash_attention(prev_flash)
+    for req, img in zip(plain_attn, fp32_images):
+        e = rel(img, image_of(system, req))
+        if not e < KERNEL_VS_PLAIN_REL:
+            raise AssertionError(f"fp32 image through the kernel vs the plain "
+                                 f"attention route: rel err {e}")
+        log(f"[path] request {req.rid}: image through the kernel vs through "
+            f"the plain attention route rel err {e:.3e} < "
+            f"{KERNEL_VS_PLAIN_REL}, max|diff| "
+            f"{float((img - image_of(system, req)).abs().max()):.3e}")
+    log(f"[path] the plain attention route served the same 2 requests in "
+        f"{plain_attn_s:.2f} s (weights loaded)  [{card}]")
+    del plain_attn
 
     # --------------------------- 5. the basic path's own shapes, timed
     timings, errs = [], [path_err]
@@ -876,10 +993,10 @@ def main() -> None:
     for shape in shapes:
         errs.append(check_attention(torch, fa, shape, False, None, f32, 2e-5))
         timings.append(time_attention(torch, fa, shape, f32))
-        log(f"[time] {json.dumps(timings[-1])}  [{card}]")
+        log_attention_time(timings[-1], shape, card)
     # ------------------------------------------- 6. where the time goes
     profile_path(torch, system, [("sd3:basic", inp) for inp in REQUESTS],
-                 card, "sd3:basic", {"flash_attention": "flash_fwd_kernel"})
+                 card, "sd3:basic", {"flash_attention": FLASH_KERNELS})
     del system, ms, reqs, img
     gc.collect()
     torch.cuda.empty_cache()
@@ -987,8 +1104,8 @@ def main() -> None:
         try:
             profile_path(torch, system, [("sd3:basic", inp) for inp in REQUESTS],
                          card, "sd3:basic int8",
-                         {"quant_matmul": "quant_matmul_kernel",
-                          "flash_attention": "flash_fwd_kernel"},
+                         {"quant_matmul": ("quant_matmul_kernel",),
+                          "flash_attention": FLASH_KERNELS},
                          ranges={"activation_quantization": "quantize_rows"})
         finally:
             qops._quantize_rows = real_rows
@@ -1144,8 +1261,8 @@ def main() -> None:
 
     # ------------------------------------ 6b. where the time goes, LoRA
     profile_path(torch, system, MIXED, card, "mixed LoRA batch",
-                 {"lora_matmul_grouped": "lora_matmul_kernel",
-                  "flash_attention": "flash_fwd_kernel"})
+                 {"lora_matmul_grouped": ("lora_matmul_kernel",),
+                  "flash_attention": FLASH_KERNELS})
     del (system, ms, adapters, reqs, ml_images, a_img, other, solo_basic, img,
          backend, enc, enc_comps, pcs, got, solo, want)
     gc.collect()
@@ -1160,7 +1277,7 @@ def main() -> None:
         log(f"[kernel] LoRA path {shape} float32: max|err| {err:.2e} <= 2e-05")
         ml_timings.append({**time_attention(torch, fa, shape, f32),
                            "path": "mixed LoRA batch"})
-        log(f"[time] {json.dumps(ml_timings[-1])}  [{card}]")
+        log_attention_time(ml_timings[-1], shape, card)
 
     # the headline is the largest shape each path really launched
     served = max(path_shapes, key=lambda s: s[0] * s[1] * s[2] * s[3])

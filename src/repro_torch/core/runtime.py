@@ -767,7 +767,9 @@ class Coordinator:
                 for ref in missing:
                     if ref.producer is not None:
                         self._reexecute(req.nodes[ref.producer])
-                if rn.pending_eager == 0:
+                # an inline producer re-executed above completes at once and
+                # wakes this node itself: ready it only if nothing did
+                if rn.state == PENDING and rn.pending_eager == 0:
                     self._node_ready(rn)
 
     def _reexecute(self, rnode: RequestNode) -> None:
@@ -780,13 +782,13 @@ class Coordinator:
                 "replay", self.now, COORDINATOR_PID, "control",
                 cat="recovery", trace=req.rid,
                 args={"uid": rnode.uid, "seg_done": rnode.seg_done})
-        missing_parent = False
+        was = rnode.state
         for ref in rnode.node.eager_input_refs():
-            key = req.ref_key(ref)
-            if not self.engine.exists(key):
-                missing_parent = True
-                if ref.producer is not None:
-                    self._reexecute(req.nodes[ref.producer])
+            if (ref.producer is not None
+                    and not self.engine.exists(req.ref_key(ref))):
+                self._reexecute(req.nodes[ref.producer])
+        if rnode.state != was:
+            return      # a PENDING node that the recursion woke is queued
         if rnode.state == DONE:
             req.remaining += 1
             req.remaining_work += rnode.infer_est
@@ -818,7 +820,12 @@ class Coordinator:
             key = req.ref_key(ref)
             if self.engine.exists(key):
                 self.engine.addref(key)
-        if rnode.pending_eager == 0 and not missing_parent:
+        # read after the recursion: an inline producer re-executed there
+        # restores its output at once, and a missing input with no
+        # producer never comes back
+        if rnode.pending_eager == 0 and all(
+                self.engine.exists(req.ref_key(ref))
+                for ref in rnode.node.eager_input_refs()):
             self._node_ready(rnode)
 
     # -------------------------------------------------- hardening/chaos

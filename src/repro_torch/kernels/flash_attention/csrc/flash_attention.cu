@@ -2,44 +2,84 @@
 //
 // Replaces the Pallas TPU kernel `_attn_kernel` / `flash_attention` in
 // src/repro/kernels/flash_attention/kernel.py.  Same function: for q, k, v of
-// shape [BH, S, D] (f32 or bf16), out = softmax(q k^T / sqrt(D)) v per head,
+// shape [BH, S, D] (f32 or bf16), out = softmax(q k^T * scale) v per head,
 // with a padding guard, optional causal and sliding-window masks, masked
-// probabilities zeroed explicitly, a row whose softmax sum is 0 giving 0, and
-// rectangular Sq != Sk.  All arithmetic is f32 (the running max, sum and
-// accumulator included); the output is written in the input's dtype.
+// probabilities zeroed explicitly, a row whose softmax sum is 0 giving 0,
+// NEG_INF = -1e30 as the running-max floor, and rectangular Sq != Sk.  All
+// sums are f32 (running max, sum and accumulator); the output is written in
+// the input's dtype.
 //
-// Bound at the path's shape.  The MMDiT joint attention at full SD3 width
-// (BH = 48 for one CFG-doubled request, S = 4429, D = 64, f32) does
-// 4*BH*S^2*D = 2.4e11 operations on 218 MB of q/k/v/o: 1.1e3 operations a
-// byte, so it is bound by operations, not memory.  Its inputs are f32 and the
-// path needs f32 results, so the rate that bounds it is the card's f32 rate
-// outside the tensor cores (67 TFLOP/s on an H100 SXM): about 3.6 ms a call,
-// and 7.2 ms at BH = 96, when two requests share a backbone batch.
+// Bound at the path's shapes.  4*BH*Sq*Sk*D operations against q, k, v and o
+// read or written once.  The MMDiT joint attention at full SD3 width (BH 96
+// for two CFG-doubled requests, S 4429, D 64, f32) does 4.8e11 operations on
+// 436 MB: 1.1e3 operations a byte, bound by operations.  On the CUDA cores
+// (f32 FMA, 67 TFLOP/s on an H100 SXM) that bound is 7.2 ms; on the tensor
+// cores with three TF32 passes per product (below) it is 4.8e11 / (495e12 /
+// 3) = 2.9 ms.  The text encoder's attention (BH 4, S 333, D 1024) does
+// 1.8e9 operations on 22 MB: 0.027 ms at the f32 FMA rate, 0.011 ms at the
+// 3xTF32 rate, 0.0065 ms for its bytes.
 //
-// Design.  One thread block per (bh, q-tile) sweeps all K/V tiles itself (the
-// TPU kernel's sequential k grid axis becomes this loop), so the running max,
-// sum and accumulator stay in registers for the whole sweep and q, k, v are
-// each read from device memory once per q-tile.  The Q tile (pre-scaled), the
-// K and V tiles and the probability tile live in shared memory as f32 with an
-// odd row stride (D + 1), so the column reads of the two products hit 32
-// distinct banks.  Thread (tr, tc) owns rows tr + i*TR and columns tc + j*TC of
-// both the score tile and the output accumulator: each row's TC owners sit in
-// one warp, so the row max and row sum are warp shuffles and the rescale by
-// alpha touches only the thread's own registers.  Tiles wholly outside the
-// causal or window band are skipped (exact: they would contribute 0).
-// Tile shapes are chosen from D: 64x64 tiles for D = 8..64 (the kernel grid and
-// the MMDiT path); 16x16 tiles for D = 1024, so that the text encoder's head
-// still fits (Q, K, V tiles of 16 x 1025 floats: 197 KB of the 227 KB a block
-// may use).  Other head dims are instantiated when a path needs them.  Products run on
-// the CUDA cores in f32 FMA; tensor-core (mma/wgmma) tiles are later work.
+// Tolerance decision.  The path's f32 gate is atol = rtol = 2e-5 against the
+// plain f32 version.  One TF32 product keeps 10 mantissa bits and misses that
+// gate by 4-50x at the path's shapes; split-precision TF32 (3xTF32) holds it
+// with 20x to spare (tests/test_torch_flash_attention.py emulates both).  So
+// every f32 operand x is split into TF32 parts hi and lo (split() below),
+// and every product is lo*hi + hi*lo + hi*hi on the tensor cores
+// (mma.sync.m16n8k8 TF32, f32 accumulators), for q k^T and for P v alike.
+// The tensor cores truncate as they accumulate, so no chain of mma sums runs
+// longer than 8 k steps: each K/V tile (and each 64-wide slice of D = 1024)
+// sums into fresh registers that join the running sums with rounded f32
+// adds.  Without that the D = 1024 error crossed the gate (2.6e-5 at BH 8).
+//
+// Design, one route per shape (the wrapper asks flash_attention_scratch_floats
+// for the scratch a route needs):
+//
+// * f32, D = 64 (the MMDiT shape): FlashAttention-2 layout, flash_mma64_kernel.
+//   One block of 4 warps per (bh, 64 query rows); each warp owns 16 rows, and
+//   its running max, sum and output accumulator stay in mma accumulator
+//   registers for the whole K sweep.  q's fragments (pre-scaled by
+//   scale*log2(e), so the softmax uses exp2) are split once per block.  K and
+//   V stream in 64-key tiles through a 2-stage cp.async ring (16-byte
+//   copies, zero-filled past Sk) with padded rows (72 and 68 floats) so that
+//   the fragment loads hit 32 distinct banks.  The k index of each 8-wide mma
+//   step is permuted (k = t <-> key 2t, k = t+4 <-> key 2t+1) so that the
+//   score accumulator of q k^T is already P's A fragment for P v, and q and K
+//   fragments load as float2.  Row max and sum are quad shuffles.  Tiles
+//   wholly outside the causal or window band are skipped, and tiles with
+//   nothing to mask skip the mask arithmetic.
+// * f32, D = 1024 (the text encoder's head): a split-KV grid.  With 4 KB a
+//   row of q there is no room for a long K sweep per block, and one block per
+//   (bh, q tile) leaves most of the 132 SMs idle (84 blocks at BH 4).
+//   flash_splitkv_kernel takes one (bh, 32 query rows, 64-key chunk): q k^T
+//   over D in 64-wide slices, the chunk's softmax in shared memory, and P v in
+//   128-column V tiles, all through one 3-stage cp.async ring; it writes the
+//   chunk's unnormalised output with its row max m and row sum l to scratch
+//   (a wholly masked chunk writes o = 0, m = NEG_INF, l = 0 and stops).
+//   264 blocks at BH 4, two per SM.  flash_merge_kernel then forms
+//   o = sum_i e^(m_i - M) o_i / sum_i e^(m_i - M) l_i over the chunks with
+//   l_i > 0 (a row with none gives 0), for any number of chunks.  The
+//   scratch holds C*BH*Sq*(D + 2) floats, C = ceil(Sk / 64): 33 MB at
+//   (4, 333, 1024), growing with Sq*Sk.  Plain versions of both passes:
+//   ref.py attention_partial_ref and merge_partials_ref.
+// * Every other case (head dims 8, 16, 32, used only by the JAX package's
+//   kernel grid and toy sizes, and bf16 inputs at any head dim): the CUDA-core
+//   template flash_fwd_kernel, one block per (bh, q tile) sweeping all K/V
+//   tiles, products as f32 FMAs on tiles kept in shared memory with odd row
+//   strides, 64x64 tiles (16x16 at D = 1024).  A rule by shape and type, not
+//   a fallback: nothing falls back at run time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float kNegInf = -1e30f;   // the TPU kernel's NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
+
+// ------------------------------------------------ CUDA-core template
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -198,14 +238,567 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+
+// ------------------------------------------------- tensor-core helpers
+
+// x ~ hi + lo, both TF32 (f32 bit patterns with the low 13 bits zero): hi
+// is x cut to 10 mantissa bits, lo the exact remainder x - hi cut the same
+// way, so hi + lo is x to 20 bits.  Cutting costs one LOP3; rounding to
+// nearest (cvt.rna.tf32.f32) compiles to a compare-and-select sequence on
+// sm_90a that made the D = 64 kernel 1.4x slower (PERF.md).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32: the two cross terms first, then hi * hi
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// A fragment (16 x 8, row-major) from two row pairs: a0 (row g, k t),
+// a1 (row g+8, k t), a2 (row g, k t+4), a3 (row g+8, k t+4); with the
+// permuted k order, .x is k = t and .y is k = t+4
+__device__ __forceinline__ void split_a(float2 top, float2 bot, uint32_t (&h)[4],
+                                        uint32_t (&l)[4]) {
+  split(top.x, h[0], l[0]);
+  split(bot.x, h[1], l[1]);
+  split(top.y, h[2], l[2]);
+  split(bot.y, h[3], l[3]);
+}
+
+// B fragment (8 x 8, col-major): b0 (k t, n g), b1 (k t+4, n g)
+__device__ __forceinline__ void split_b(float b0, float b1, uint32_t (&h)[2],
+                                        uint32_t (&l)[2]) {
+  split(b0, h[0], l[0]);
+  split(b1, h[1], l[1]);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(ok ? 16 : 0)   // 0: zero-fill
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ bool visible(int key, int row, int sk, int causal,
+                                        int has_window, int window) {
+  return key < sk && (!causal || key <= row) &&
+         (!has_window || key > row - window);
+}
+
+// ------------------------------------------- f32, D = 64: mma.sync tiles
+
+constexpr int M64_BQ = 64, M64_BK = 64, M64_NT = 128, M64_STAGES = 2;
+constexpr int M64_LDK = 64 + 8;   // float2 loads at (key g, dim 2t): 8g + 2t
+constexpr int M64_LDV = 64 + 4;   // loads at (key 2t, dim g): 8t + g
+constexpr int M64_SMEM =
+    M64_STAGES * M64_BK * (M64_LDK + M64_LDV) * (int)sizeof(float);
+
+__global__ void __launch_bounds__(M64_NT)
+flash_mma64_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o, int sq,
+                   int sk, float scale_log2, int causal, int has_window,
+                   int window) {
+  constexpr int D = 64, BQ = M64_BQ, BK = M64_BK, NT = M64_NT;
+  constexpr int STAGES = M64_STAGES, LDK = M64_LDK, LDV = M64_LDV;
+  extern __shared__ float4 smem4[];
+  float* sK = reinterpret_cast<float*>(smem4);   // [STAGES][BK][LDK]
+  float* sV = sK + STAGES * BK * LDK;            // [STAGES][BK][LDV]
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float* kb = k + (size_t)bh * sk * D;
+  const float* vb = v + (size_t)bh * sk * D;
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;   // this lane's two rows
+
+  // the K range this q tile can see: the causal band ends at its last row,
+  // the window band starts window-1 keys before its first row
+  int k_begin = 0, k_end = sk;
+  if (causal) k_end = min(sk, q0 + BQ);
+  if (has_window) k_begin = max(0, q0 - window + 1) / BK * BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+
+  auto load_tile = [&](int tile) {
+    const int kt = k_begin + tile * BK, stage = tile % STAGES;
+    float* dK = sK + stage * BK * LDK;
+    float* dV = sV + stage * BK * LDV;
+#pragma unroll
+    for (int i = 0; i < BK * D / 4 / NT; ++i) {   // 16-byte chunks
+      const int c = tid + i * NT, row = c / (D / 4), col = (c % (D / 4)) * 4;
+      const bool ok = kt + row < sk;              // padding guard: zero rows
+      const size_t off = (size_t)(ok ? kt + row : 0) * D + col;
+      cp_async16(dK + row * LDK + col, kb + off, ok);
+      cp_async16(dV + row * LDV + col, vb + off, ok);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) load_tile(s);
+    cp_async_commit();
+  }
+
+  // q fragments, pre-scaled and split once: step kk covers dims 8kk..8kk+7,
+  // k = t <-> dim 8kk+2t and k = t+4 <-> dim 8kk+2t+1
+  uint32_t qh[D / 8][4], ql[D / 8][4];
+  {
+    const float* qb = q + (size_t)bh * sq * D;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      float2 top = make_float2(0.f, 0.f), bot = top;
+      if (r0 < sq) top = *reinterpret_cast<const float2*>(qb + (size_t)r0 * D + 8 * kk + 2 * t);
+      if (r1 < sq) bot = *reinterpret_cast<const float2*>(qb + (size_t)r1 * D + 8 * kk + 2 * t);
+      top.x *= scale_log2; top.y *= scale_log2;
+      bot.x *= scale_log2; bot.y *= scale_log2;
+      split_a(top, bot, qh[kk], ql[kk]);
+    }
+  }
+
+  float acc[D / 8][4];   // output: n-tile n covers dims 8n..8n+7
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf};   // rows r0, r1 (log2 units)
+  float l_run[2] = {0.f, 0.f};           // this lane's part of the row sums
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + STAGES - 1 < n_tiles) load_tile(it + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    const float* cK = sK + (it % STAGES) * BK * LDK;
+    const float* cV = sV + (it % STAGES) * BK * LDV;
+    const int kt = k_begin + it * BK;
+
+    // s = q k^T: n-tile j covers keys kt+8j..kt+8j+7
+    float s[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float2 kv =
+            *reinterpret_cast<const float2*>(cK + (8 * j + g) * LDK + 8 * kk + 2 * t);
+        uint32_t bh_[2], bl_[2];
+        split_b(kv.x, kv.y, bh_, bl_);
+        mma_3xtf32(s[j], qh[kk], ql[kk], bh_, bl_);
+      }
+    }
+
+    // online softmax; s[j][e] sits at row (e < 2 ? r0 : r1), key
+    // kt + 8j + 2t + (e & 1).  A tile inside Sk with no causal or window
+    // band takes the unmasked instance (every tile of the MMDiT path but
+    // its last).
+    float alpha[2];
+    auto softmax = [&](auto masked) {
+      constexpr bool MASKED = decltype(masked)::value;
+      float mx[2] = {kNegInf, kNegInf};
+      uint32_t ok = 0xffffffffu;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (MASKED) {
+            const bool vis = visible(kt + 8 * j + 2 * t + (e & 1),
+                                     e < 2 ? r0 : r1, sk, causal, has_window,
+                                     window);
+            ok &= ~((uint32_t)!vis << (4 * j + e));
+            s[j][e] = vis ? s[j][e] : kNegInf;
+          }
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m_run[i], quad_max(mx[i]));
+        alpha[i] = exp2f(m_run[i] - m_new);
+        m_run[i] = m_new;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // zero masked probabilities explicitly: a fully masked tile must
+          // add 0, not exp(NEG_INF - NEG_INF) = 1
+          const float p = (!MASKED || ((ok >> (4 * j + e)) & 1u))
+                              ? exp2f(s[j][e] - m_run[e >> 1]) : 0.f;
+          s[j][e] = p;
+          rs[e >> 1] += p;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l_run[i] = alpha[i] * l_run[i] + rs[i];
+    };
+    if (kt + BK <= sk && !causal && !has_window)
+      softmax(std::false_type{});
+    else
+      softmax(std::true_type{});
+
+    // pv = P v over this tile: k step j covers keys kt+8j..; P's A fragment
+    // is s[j] itself (k = t <-> key 2t, k = t+4 <-> key 2t+1).  The tensor
+    // cores truncate as they accumulate, so each tile sums into fresh
+    // registers and joins the running output with a rounded f32 FMA.
+    float pv[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      uint32_t ph[4], pl[4];
+      split_a(make_float2(s[j][0], s[j][1]), make_float2(s[j][2], s[j][3]), ph, pl);
+      const float* v0 = cV + (8 * j + 2 * t) * LDV + g;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        uint32_t bh_[2], bl_[2];
+        split_b(v0[8 * n], v0[LDV + 8 * n], bh_, bl_);
+        mma_3xtf32(pv[n], ph, pl, bh_, bl_);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], pv[n][e]);
+    __syncthreads();   // this stage's reads are done before it is refilled
+  }
+  cp_async_wait<0>();
+
+  float* ob = o + (size_t)bh * sq * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i ? r1 : r0;
+    const float l = quad_sum(l_run[i]);
+    const float inv = 1.f / (l == 0.f ? 1.f : l);   // fully masked rows
+    if (row >= sq) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(ob + (size_t)row * D + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+  }
+}
+
+// ------------------------------------- f32, D = 1024: split-KV and merge
+
+constexpr int SKV_D = 1024, SKV_BQ = 32, SKV_CK = 64, SKV_NT = 256;
+constexpr int SKV_STAGES = 3;
+constexpr int SKV_DS = 64;            // q k^T: dims per slice (16 slices)
+constexpr int SKV_VC = 128;           // P v: output columns per V tile (8)
+// warps tile a block as MT rows (one 16-row mma tile each) by NW / MT columns
+constexpr int SKV_NW = SKV_NT / 32, SKV_MT = SKV_BQ / 16, SKV_WC = SKV_NW / SKV_MT;
+constexpr int SKV_TN = SKV_CK / 8 / SKV_WC;   // q k^T n-tiles a warp owns
+constexpr int SKV_WN = SKV_VC / 8 / SKV_WC;   // P v n-tiles a warp owns
+static_assert(SKV_CK == 64 && SKV_NW % SKV_MT == 0 && SKV_BQ % SKV_NW == 0 &&
+              SKV_TN * SKV_WC * 8 == SKV_CK && SKV_WN * SKV_WC * 8 == SKV_VC,
+              "split-KV warp tiling");
+constexpr int SKV_NS = SKV_D / SKV_DS, SKV_NV = SKV_D / SKV_VC;
+constexpr int SKV_LDQ = SKV_DS + 8;   // 72: float2 loads, 8g + 2t
+constexpr int SKV_LDV = SKV_VC + 4;   // 132: loads at (key 2t, col g): 8t + g
+constexpr int SKV_LDP = SKV_CK + 8;   // 72
+constexpr int SKV_STAGE_FLOATS =
+    (SKV_BQ + SKV_CK) * SKV_LDQ > SKV_CK * SKV_LDV ? (SKV_BQ + SKV_CK) * SKV_LDQ
+                                                   : SKV_CK * SKV_LDV;
+constexpr int SKV_SMEM =
+    (SKV_STAGES * SKV_STAGE_FLOATS + SKV_BQ * SKV_LDP) * (int)sizeof(float);
+
+__host__ __device__ inline int skv_chunks(int sk) { return (sk + SKV_CK - 1) / SKV_CK; }
+
+// scratch: o_part [C][BH][Sq][D], then m [C][BH][Sq], then l [C][BH][Sq]
+__global__ void __launch_bounds__(SKV_NT)
+flash_splitkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ part,
+                     int nbh, int sq, int sk, float scale, int causal,
+                     int has_window, int window) {
+  constexpr int D = SKV_D, BQ = SKV_BQ, CK = SKV_CK, NT = SKV_NT;
+  extern __shared__ float4 smem4[];
+  float* sbuf = reinterpret_cast<float*>(smem4);   // [STAGES][STAGE_FLOATS]
+  float* sP = sbuf + SKV_STAGES * SKV_STAGE_FLOATS; // [BQ][SKV_LDP]
+
+  const int c = blockIdx.x, q0 = blockIdx.y * BQ, bh = blockIdx.z;
+  const int c0 = c * CK;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t rows = (size_t)nbh * sq;
+  float* o_part = part + ((size_t)c * rows + (size_t)bh * sq) * D;
+  float* m_part = part + (size_t)skv_chunks(sk) * rows * D + c * rows + (size_t)bh * sq;
+  float* l_part = m_part + (size_t)skv_chunks(sk) * rows;
+
+  // a chunk wholly outside every row's causal or window band adds nothing:
+  // its partial is o = 0, m = NEG_INF, l = 0
+  if ((causal && c0 > q0 + BQ - 1) ||
+      (has_window && c0 + CK - 1 <= q0 - window)) {
+    const int n_rows = min(BQ, sq - q0);
+    for (int x = tid; x < n_rows * (D / 4); x += NT)
+      reinterpret_cast<float4*>(o_part + (size_t)q0 * D)[x] =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    if (tid < n_rows) {
+      m_part[q0 + tid] = kNegInf;
+      l_part[q0 + tid] = 0.f;
+    }
+    return;
+  }
+
+  const float* qb = q + (size_t)bh * sq * D;
+  const float* kb = k + (size_t)bh * sk * D;
+  const float* vb = v + (size_t)bh * sk * D;
+
+  // load i < SKV_NS: q and K slice i (dims 64i..); else V tile i - SKV_NS
+  // (columns 128(i - SKV_NS)..) of the chunk's keys
+  constexpr int N_LOADS = SKV_NS + SKV_NV;
+  auto load = [&](int i) {
+    float* dst = sbuf + (i % SKV_STAGES) * SKV_STAGE_FLOATS;
+    if (i >= N_LOADS) {
+      // nothing left to load: an empty group keeps the wait count uniform
+    } else if (i < SKV_NS) {
+      const int d0 = i * SKV_DS;
+      for (int x = tid; x < (BQ + CK) * (SKV_DS / 4); x += NT) {
+        const int row = x / (SKV_DS / 4), col = (x % (SKV_DS / 4)) * 4;
+        const bool is_q = row < BQ;
+        const int r = is_q ? q0 + row : c0 + row - BQ;
+        const bool ok = r < (is_q ? sq : sk);
+        const float* src = (is_q ? qb : kb) + (size_t)(ok ? r : 0) * D + d0 + col;
+        cp_async16(dst + row * SKV_LDQ + col, src, ok);
+      }
+    } else {
+      const int n0 = (i - SKV_NS) * SKV_VC;
+      for (int x = tid; x < CK * (SKV_VC / 4); x += NT) {
+        const int row = x / (SKV_VC / 4), col = (x % (SKV_VC / 4)) * 4;
+        const bool ok = c0 + row < sk;
+        cp_async16(dst + row * SKV_LDV + col,
+                   vb + (size_t)(ok ? c0 + row : 0) * D + n0 + col, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int mt = warp % SKV_MT;     // 16-row tile: rows 16mt..16mt+15
+  const int nb = warp / SKV_MT * SKV_TN;       // q k^T: key n-tiles nb..
+  const int cb = warp / SKV_MT * 8 * SKV_WN;   // P v: its columns of a V tile
+  float s[SKV_TN][4] = {};
+
+  for (int i = 0; i < SKV_STAGES - 1; ++i) load(i);
+  for (int i = 0; i < N_LOADS; ++i) {
+    load(i + SKV_STAGES - 1);
+    cp_async_wait<SKV_STAGES - 1>();
+    __syncthreads();
+    const float* cur = sbuf + (i % SKV_STAGES) * SKV_STAGE_FLOATS;
+    if (i < SKV_NS) {
+      const float* sQ = cur;
+      const float* sK = cur + BQ * SKV_LDQ;
+      // the tensor cores truncate as they accumulate: each slice sums into
+      // fresh registers and joins s with a rounded f32 add
+      float st[SKV_TN][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < SKV_DS / 8; ++kk) {
+        uint32_t ah[4], al[4];
+        const float* qa = sQ + (16 * mt + g) * SKV_LDQ + 8 * kk + 2 * t;
+        split_a(*reinterpret_cast<const float2*>(qa),
+                *reinterpret_cast<const float2*>(qa + 8 * SKV_LDQ), ah, al);
+#pragma unroll
+        for (int jj = 0; jj < SKV_TN; ++jj) {
+          const float2 kv = *reinterpret_cast<const float2*>(
+              sK + (8 * (nb + jj) + g) * SKV_LDQ + 8 * kk + 2 * t);
+          uint32_t bh_[2], bl_[2];
+          split_b(kv.x, kv.y, bh_, bl_);
+          mma_3xtf32(st[jj], ah, al, bh_, bl_);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < SKV_TN; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[jj][e] += st[jj][e];
+      if (i == SKV_NS - 1) {
+        // the chunk's scores to shared memory, then its softmax: each warp
+        // takes BQ / NW rows, each lane keys lane and lane + 32
+#pragma unroll
+        for (int jj = 0; jj < SKV_TN; ++jj) {
+          float* sp = sP + (16 * mt + g) * SKV_LDP + 8 * (nb + jj) + 2 * t;
+          *reinterpret_cast<float2*>(sp) = make_float2(s[jj][0], s[jj][1]);
+          *reinterpret_cast<float2*>(sp + 8 * SKV_LDP) = make_float2(s[jj][2], s[jj][3]);
+        }
+        __syncthreads();
+        for (int rr = warp * (BQ / SKV_NW); rr < (warp + 1) * (BQ / SKV_NW); ++rr) {
+          const int row = q0 + rr;
+          float x[2], mx = kNegInf;
+          bool vis[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            vis[h] = visible(c0 + lane + 32 * h, row, sk, causal, has_window, window);
+            x[h] = vis[h] ? sP[rr * SKV_LDP + lane + 32 * h] * scale : kNegInf;
+            mx = fmaxf(mx, x[h]);
+          }
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+          float sum = 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float p = vis[h] ? expf(x[h] - mx) : 0.f;   // masked: 0
+            sP[rr * SKV_LDP + lane + 32 * h] = p;
+            sum += p;
+          }
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            sum += __shfl_xor_sync(0xffffffffu, sum, off);
+          if (lane == 0 && row < sq) {
+            m_part[row] = mx;
+            l_part[row] = sum;
+          }
+        }
+      }
+    } else {
+      // o_part[:, 128 vt + cb ..] = P v over the chunk's 64 keys
+      const float* sV = cur;
+      const int vt = i - SKV_NS;
+      float acc[SKV_WN][4] = {};
+#pragma unroll
+      for (int j = 0; j < CK / 8; ++j) {
+        uint32_t ph[4], pl[4];
+        const float* pa = sP + (16 * mt + g) * SKV_LDP + 8 * j + 2 * t;
+        split_a(*reinterpret_cast<const float2*>(pa),
+                *reinterpret_cast<const float2*>(pa + 8 * SKV_LDP), ph, pl);
+        const float* v0 = sV + (8 * j + 2 * t) * SKV_LDV + cb + g;
+#pragma unroll
+        for (int n = 0; n < SKV_WN; ++n) {
+          uint32_t bh_[2], bl_[2];
+          split_b(v0[8 * n], v0[SKV_LDV + 8 * n], bh_, bl_);
+          mma_3xtf32(acc[n], ph, pl, bh_, bl_);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = q0 + 16 * mt + g + 8 * h;
+        if (row >= sq) continue;
+#pragma unroll
+        for (int n = 0; n < SKV_WN; ++n)
+          *reinterpret_cast<float2*>(o_part + (size_t)row * D + vt * SKV_VC +
+                                     cb + 8 * n + 2 * t) =
+              make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+      }
+    }
+    __syncthreads();   // this stage's reads are done before it is refilled
+  }
+}
+
+// o = sum_i e^(m_i - M) o_i / sum_i e^(m_i - M) l_i over the chunks with
+// l_i > 0, M their largest m_i; a row with no such chunk gives 0.  Every
+// o_i is written (0 where l_i = 0), so the loads need no branch.  One block
+// a row, each thread four of its columns.  Every thread reads the row's m
+// and l (one address across the block) in two passes, M first, then each
+// chunk's weight beside its columns, so any number of chunks is taken.
+__global__ void __launch_bounds__(SKV_D / 4)
+flash_merge_kernel(const float* __restrict__ part, float* __restrict__ o,
+                   int nbh, int sq, int nchunks) {
+  constexpr int D = SKV_D;
+  const size_t rows = (size_t)nbh * sq;
+  const size_t r = (size_t)blockIdx.y * sq + blockIdx.x;
+  const float* m = part + (size_t)nchunks * rows * D;
+  const float* l = m + (size_t)nchunks * rows;
+  float big = kNegInf;
+  for (int c = 0; c < nchunks; ++c)
+    if (l[c * rows + r] > 0.f) big = fmaxf(big, m[c * rows + r]);
+  float den = 0.f;
+  float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int c = 0; c < nchunks; ++c) {
+    const float lc = l[c * rows + r];
+    const float w = lc > 0.f ? expf(m[c * rows + r] - big) : 0.f;
+    den += w * lc;
+    const float4 x =
+        reinterpret_cast<const float4*>(part + (c * rows + r) * D)[threadIdx.x];
+    num.x += w * x.x; num.y += w * x.y; num.z += w * x.z; num.w += w * x.w;
+  }
+  const float inv = 1.f / (den == 0.f ? 1.f : den);
+  reinterpret_cast<float4*>(o + r * D)[threadIdx.x] =
+      make_float4(num.x * inv, num.y * inv, num.z * inv, num.w * inv);
+}
+
+// ------------------------------------------------------------- launches
+
+// Lift a kernel's dynamic shared-memory limit, once per device (bit d of
+// `done` marks device d).
+cudaError_t allow_smem(const void* kernel, int bytes, unsigned long long& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (done >> dev) & 1ull) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done |= 1ull << dev;
+  return err;
+}
+
+int launch_mma64(const float* q, const float* k, const float* v, float* o,
+                 int bh, int sq, int sk, float scale, int causal,
+                 int has_window, int window, cudaStream_t stream) {
+  static unsigned long long done = 0;
+  cudaError_t err = allow_smem((const void*)flash_mma64_kernel, M64_SMEM, done);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sq + M64_BQ - 1) / M64_BQ, bh);
+  flash_mma64_kernel<<<grid, M64_NT, M64_SMEM, stream>>>(
+      q, k, v, o, sq, sk, scale * kLog2e, causal, has_window, window);
+  return (int)cudaGetLastError();
+}
+
+int launch_partials(const float* q, const float* k, const float* v,
+                    float* scratch, int bh, int sq, int sk, float scale,
+                    int causal, int has_window, int window, cudaStream_t stream) {
+  static unsigned long long done = 0;
+  cudaError_t err = allow_smem((const void*)flash_splitkv_kernel, SKV_SMEM, done);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(skv_chunks(sk), (sq + SKV_BQ - 1) / SKV_BQ, bh);
+  flash_splitkv_kernel<<<grid, SKV_NT, SKV_SMEM, stream>>>(
+      q, k, v, scratch, bh, sq, sk, scale, causal, has_window, window);
+  return (int)cudaGetLastError();
+}
+
+int launch_merge(const float* scratch, float* o, int bh, int sq, int sk,
+                 cudaStream_t stream) {
+  flash_merge_kernel<<<dim3(sq, bh), SKV_D / 4, 0, stream>>>(
+      scratch, o, bh, sq, skv_chunks(sk));
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D, int BQ, int BK, int NT, int TC>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
            int sq, int sk, float scale, int causal, int has_window, int window,
            cudaStream_t stream) {
   constexpr size_t smem = sizeof(float) * smem_floats<D, BQ, BK>();
   auto kernel = flash_fwd_kernel<T, D, BQ, BK, NT, TC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static unsigned long long done = 0;
+  cudaError_t err = allow_smem((const void*)kernel, (int)smem, done);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sq + BQ - 1) / BQ, bh);
   kernel<<<grid, NT, smem, stream>>>(
@@ -215,6 +808,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   return (int)cudaGetLastError();
 }
 
+// the CUDA-core template: small heads at any dtype, every head in bf16
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
              int sq, int sk, int d, float scale, int causal, int has_window,
@@ -223,23 +817,51 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
     case 8:    return launch<T, 8, 64, 64, 128, 8>(q, k, v, o, bh, sq, sk, scale, causal, has_window, window, st);
     case 16:   return launch<T, 16, 64, 64, 128, 16>(q, k, v, o, bh, sq, sk, scale, causal, has_window, window, st);
     case 32:   return launch<T, 32, 64, 64, 128, 16>(q, k, v, o, bh, sq, sk, scale, causal, has_window, window, st);
-    case 64:   return launch<T, 64, 64, 64, 128, 16>(q, k, v, o, bh, sq, sk, scale, causal, has_window, window, st);
-    case 1024: return launch<T, 1024, 16, 16, 256, 16>(q, k, v, o, bh, sq, sk, scale, causal, has_window, window, st);
-    default:   return -1;
+    default:   break;
   }
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (d == 64)
+      return launch<T, 64, 64, 64, 128, 16>(q, k, v, o, bh, sq, sk, scale, causal, has_window, window, st);
+    if (d == 1024)
+      return launch<T, 1024, 16, 16, 256, 16>(q, k, v, o, bh, sq, sk, scale, causal, has_window, window, st);
+  }
+  return -1;
 }
 
 }  // namespace
 
+// Floats of device scratch that flash_attention_fwd needs for these
+// arguments: 0 for every route but the split-KV one.
+extern "C" long long flash_attention_scratch_floats(int bh, int sq, int sk,
+                                                    int d, int dtype) {
+  if (dtype != 0 || d != SKV_D) return 0;
+  return (long long)skv_chunks(sk) * bh * sq * (SKV_D + 2);
+}
+
 // q, k, v, o: contiguous [bh, sq|sk, d] device arrays of one dtype
-// (0 = float32, 1 = bfloat16).  Launches on `stream` and returns the CUDA
-// error of the launch (0 on success), or -1 for a head dim or dtype the
-// kernel does not take.
+// (0 = float32, 1 = bfloat16), 16-byte aligned; scratch: at least
+// flash_attention_scratch_floats(...) floats.  Launches on `stream` and
+// returns the CUDA error of the launches (0 on success), or -1 for a head
+// dim or dtype the kernels do not take.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int bh, int sq, int sk, int d,
-                                   int dtype, float scale, int causal,
-                                   int has_window, int window, void* stream) {
+                                   void* o, void* scratch, int bh, int sq,
+                                   int sk, int d, int dtype, float scale,
+                                   int causal, int has_window, int window,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && d == 64)
+    return launch_mma64(static_cast<const float*>(q), static_cast<const float*>(k),
+                        static_cast<const float*>(v), static_cast<float*>(o),
+                        bh, sq, sk, scale, causal, has_window, window, st);
+  if (dtype == 0 && d == SKV_D) {
+    const int err = launch_partials(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(scratch), bh, sq, sk,
+        scale, causal, has_window, window, st);
+    if (err != 0) return err;
+    return launch_merge(static_cast<const float*>(scratch),
+                        static_cast<float*>(o), bh, sq, sk, st);
+  }
   if (dtype == 0)
     return dispatch<float>(q, k, v, o, bh, sq, sk, d, scale, causal,
                            has_window, window, st);
@@ -247,4 +869,27 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     return dispatch<__nv_bfloat16>(q, k, v, o, bh, sq, sk, d, scale, causal,
                                    has_window, window, st);
   return -1;
+}
+
+// The split-KV route's two passes on their own (f32, D = 1024), for holding
+// each kernel against its plain version: the partials into scratch, and the
+// merge of a scratch laid out as flash_attention_scratch_floats describes
+// (o [C][bh][sq][1024], then m and l [C][bh][sq], C = ceil(sk / chunk)).
+extern "C" int flash_attention_split_kv_chunk() { return SKV_CK; }
+
+extern "C" int flash_attention_partials(const void* q, const void* k,
+                                        const void* v, void* scratch, int bh,
+                                        int sq, int sk, float scale, int causal,
+                                        int has_window, int window,
+                                        void* stream) {
+  return launch_partials(static_cast<const float*>(q), static_cast<const float*>(k),
+                         static_cast<const float*>(v), static_cast<float*>(scratch),
+                         bh, sq, sk, scale, causal, has_window, window,
+                         static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_attention_merge(const void* scratch, void* o, int bh,
+                                     int sq, int sk, void* stream) {
+  return launch_merge(static_cast<const float*>(scratch), static_cast<float*>(o),
+                      bh, sq, sk, static_cast<cudaStream_t>(stream));
 }

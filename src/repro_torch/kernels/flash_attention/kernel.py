@@ -5,12 +5,15 @@ Replaces the Pallas TPU kernel ``flash_attention`` / ``_attn_kernel``
 ``csrc/flash_attention.cu``; its header note gives the bound at the main
 path's shape and what the design does about it.  It is compiled with
 ``nvcc`` for ``sm_90a`` at first use (:mod:`repro_torch.kernels.build`) and
-bound with ``ctypes``.
+bound with ``ctypes``.  The source routes by shape: f32 at head dim 64 to
+split-precision TF32 tensor-core tiles, f32 at head dim 1024 to a split-KV
+grid and a merge kernel (the wrapper allocates their scratch), the rest to
+a CUDA-core template.
 
 :func:`flash_attention` takes the plain version (:func:`attention_ref`)
-only for tensors on the CPU.  For CUDA tensors it launches the kernel or
+only for tensors on the CPU.  For CUDA tensors it launches the kernels or
 raises: there is no fallback.  ``flash_attention.launches`` counts the
-kernel launches.
+wrapper's launches, one a call whatever number of CUDA kernels it runs.
 """
 
 from __future__ import annotations
@@ -23,26 +26,50 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.kernels.build import build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_partial_ref,
+    attention_ref,
+    merge_partials_ref,
+)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 1024)
+SPLIT_KV_HEAD_DIM = 1024        # f32 at this head dim takes the split-KV route
+SPLIT_KV_CHUNK = 64             # keys per split-KV block
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_INT, _PTR = ctypes.c_int, ctypes.c_void_p
 
-_fwd: Any = None
+_lib: Any = None
 
 
 def _kernel() -> Any:
-    """The bound C entry point (builds the library on first call)."""
-    global _fwd
-    if _fwd is None:
-        fn = ctypes.CDLL(str(build(SOURCE))).flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_float] + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fwd = fn
-    return _fwd
+    """The bound C library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build(SOURCE)))
+        for name, args, res in (
+                ("flash_attention_fwd", [_PTR] * 5 + [_INT] * 5
+                 + [ctypes.c_float] + [_INT] * 3 + [_PTR], _INT),
+                ("flash_attention_scratch_floats", [_INT] * 5,
+                 ctypes.c_longlong),
+                ("flash_attention_split_kv_chunk", [], _INT),
+                ("flash_attention_partials", [_PTR] * 4 + [_INT] * 3
+                 + [ctypes.c_float] + [_INT] * 3 + [_PTR], _INT),
+                ("flash_attention_merge", [_PTR] * 2 + [_INT] * 3 + [_PTR],
+                 _INT)):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, res
+        if lib.flash_attention_split_kv_chunk() != SPLIT_KV_CHUNK:
+            raise RuntimeError("flash_attention: the built library's split-KV "
+                               "chunk differs from SPLIT_KV_CHUNK")
+        _lib = lib
+    return _lib
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"flash_attention: {what}: kernel launch failed "
+                           f"with CUDA error {err}")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -57,6 +84,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         if t.dim() != 3 or not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be a contiguous "
                              f"[BH, S, D] tensor, got {tuple(t.shape)}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             f"aligned (the kernels copy 16-byte chunks)")
     bh, _, d = q.shape
     if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
@@ -79,22 +109,97 @@ def flash_attention(
         return attention_ref(q, k, v, causal=causal, window=window,
                              scale=scale)
     _check(q, k, v)
-    fwd = _kernel()
+    lib = _kernel()
     bh, sq, d = q.shape
     sk = k.shape[1]
+    dtype = _DTYPE_CODES[q.dtype]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
+    # the split-KV route's partial outputs, row maxima and row sums
+    n = lib.flash_attention_scratch_floats(bh, sq, sk, d, dtype)
+    scratch = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  bh, sq, sk, d, _DTYPE_CODES[q.dtype], scale, int(causal),
-                  int(window is not None), int(window or 0), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed with "
-                           f"CUDA error {err} (BH={bh}, Sq={sq}, Sk={sk}, "
-                           f"D={d}, {q.dtype})")
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if n else None, bh, sq, sk, d, dtype, scale,
+            int(causal), int(window is not None), int(window or 0),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, f"BH={bh}, Sq={sq}, Sk={sk}, D={d}, {q.dtype}")
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+# The split-KV route's two passes on their own, so that each kernel can be
+# held against its plain version; ``flash_attention`` runs both in one call.
+
+def split_kv_partials(
+    q: torch.Tensor,            # [BH, Sq, 1024] f32
+    k: torch.Tensor,            # [BH, Sk, 1024] f32
+    v: torch.Tensor,            # [BH, Sk, 1024] f32
+    *,
+    causal: bool = False,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> tuple:
+    """Per-chunk partials ``(o, m, l)`` of :func:`attention_partial_ref`
+    (chunks of ``SPLIT_KV_CHUNK`` keys) from the split-KV kernel."""
+    if q.device.type == "cpu":
+        return attention_partial_ref(q, k, v, chunk=SPLIT_KV_CHUNK,
+                                     causal=causal, window=window, scale=scale)
+    _check(q, k, v)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if q.dtype != torch.float32 or d != SPLIT_KV_HEAD_DIM:
+        raise ValueError(f"split_kv_partials: the split-KV route takes f32 "
+                         f"at head dim {SPLIT_KV_HEAD_DIM}, got {q.dtype}, {d}")
+    lib = _kernel()
+    o, m, l, scratch = _partials_views(bh, sq, sk, q.device)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_partials(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), scratch.data_ptr(), bh,
+            sq, sk, scale, int(causal), int(window is not None),
+            int(window or 0), torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "split-KV partials")
+    return o, m, l
+
+
+def split_kv_merge(o: torch.Tensor, m: torch.Tensor,
+                   l: torch.Tensor) -> torch.Tensor:
+    """:func:`merge_partials_ref` by the merge kernel: partials of
+    ``ceil(Sk / SPLIT_KV_CHUNK)`` chunks, [C, BH, Sq, 1024] f32."""
+    if o.device.type == "cpu":
+        return merge_partials_ref(o, m, l)
+    c, bh, sq, d = o.shape
+    if (d != SPLIT_KV_HEAD_DIM or o.dtype != torch.float32
+            or m.shape != (c, bh, sq) or l.shape != (c, bh, sq)):
+        raise ValueError(f"split_kv_merge: partials {tuple(o.shape)} "
+                         f"{o.dtype}, m {tuple(m.shape)}, l {tuple(l.shape)}")
+    lib = _kernel()
+    sk = c * SPLIT_KV_CHUNK
+    po, pm, pl, scratch = _partials_views(bh, sq, sk, o.device)
+    po.copy_(o)
+    pm.copy_(m)
+    pl.copy_(l)
+    out = torch.empty((bh, sq, d), dtype=torch.float32, device=o.device)
+    with torch.cuda.device(o.device):
+        err = lib.flash_attention_merge(
+            scratch.data_ptr(), out.data_ptr(), bh, sq, sk,
+            torch.cuda.current_stream(o.device).cuda_stream)
+    _raise_on(err, "split-KV merge")
+    return out
+
+
+def _partials_views(bh: int, sq: int, sk: int, device) -> tuple:
+    """A scratch in the kernels' layout and its (o, m, l) views."""
+    c = -(-sk // SPLIT_KV_CHUNK)
+    d = SPLIT_KV_HEAD_DIM
+    scratch = torch.empty(c * bh * sq * (d + 2), dtype=torch.float32,
+                          device=device)
+    n = c * bh * sq
+    return (scratch[:n * d].view(c, bh, sq, d),
+            scratch[n * d:n * (d + 1)].view(c, bh, sq),
+            scratch[n * (d + 1):].view(c, bh, sq), scratch)

@@ -33,3 +33,64 @@ def attention_ref(
     p = torch.where(torch.isnan(p), 0.0, p)       # fully-masked rows
     out = torch.einsum("bqk,bkd->bqd", p, v.float())
     return out.to(q.dtype)
+
+
+NEG_INF = -1e30                 # the kernels' running-max floor
+
+
+def attention_partial_ref(
+    q: torch.Tensor,            # [BH, Sq, D]
+    k: torch.Tensor,            # [BH, Sk, D]
+    v: torch.Tensor,            # [BH, Sk, D]
+    *,
+    chunk: int,
+    causal: bool = False,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> tuple:
+    """Plain version of the split-KV kernel's first pass: attention of each
+    query row over each run of ``chunk`` keys on its own.  Returns f32
+    ``(o, m, l)``: ``o`` [C, BH, Sq, D] is the chunk's unnormalised output
+    sum_k p_k v_k, ``m`` [C, BH, Sq] its row max of the scaled scores
+    (``NEG_INF`` where the chunk holds no key of the row) and ``l`` its row
+    sum of p_k = exp(s_k - m) (0 there)."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    os_, ms, ls = [], [], []
+    for c0 in range(0, sk, chunk):
+        sc = s[:, :, c0:c0 + chunk]
+        mc = mask[None, :, c0:c0 + chunk]
+        m = sc.masked_fill(~mc, NEG_INF).amax(dim=-1, keepdim=True)
+        p = torch.where(mc, torch.exp(sc - m), 0.0)
+        os_.append(torch.einsum("bqk,bkd->bqd", p, v[:, c0:c0 + chunk].float()))
+        ms.append(m[..., 0])
+        ls.append(p.sum(dim=-1))
+    return torch.stack(os_), torch.stack(ms), torch.stack(ls)
+
+
+def merge_partials_ref(
+    o: torch.Tensor,            # [C, BH, Sq, D]
+    m: torch.Tensor,            # [C, BH, Sq]
+    l: torch.Tensor,            # [C, BH, Sq]
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Plain version of the split-KV merge kernel:
+    out = sum_c e^(m_c - M) o_c / sum_c e^(m_c - M) l_c with M = max_c m_c
+    over the chunks that hold a key of the row (l_c > 0).  A chunk with
+    l_c = 0 adds nothing, and a row with no key at all gives 0."""
+    live = l > 0
+    big = torch.where(live, m, NEG_INF).amax(dim=0, keepdim=True)
+    w = torch.where(live, torch.exp(m - big), 0.0)
+    num = (w[..., None] * torch.where(live[..., None], o, 0.0)).sum(dim=0)
+    den = (w * l).sum(dim=0)
+    den = torch.where(den == 0, 1.0, den)
+    return (num / den[..., None]).to(dtype)

@@ -21,6 +21,21 @@ GRID = [
     ((2, 100, 300, 8), False, 128),
     ((2, 72, 72, 16), False, None),      # toy MMDiT joint attention
     ((2, 40, 40, 1024), False, None),    # text-encoder head dim
+    # f32 head dim 64 runs the tensor-core tiles: full and ragged tiles,
+    # causal and window bands (bf16 takes the CUDA-core template)
+    ((4, 512, 512, 64), False, None),
+    ((3, 500, 500, 64), False, None),
+    ((3, 500, 500, 64), True, None),
+    ((2, 300, 300, 64), True, 37),
+    ((1, 200, 150, 64), True, 1),        # rows 150.. see no key
+    # f32 head dim 1024 runs the split-KV grid and its merge: ragged S,
+    # causal and window bands with wholly masked 64-key chunks
+    ((3, 100, 77, 1024), False, None),
+    ((2, 333, 333, 1024), True, None),
+    ((2, 333, 333, 1024), False, 40),
+    ((2, 333, 333, 1024), True, 70),
+    ((1, 200, 150, 1024), True, 1),
+    ((1, 16, 17000, 1024), False, None),  # the merge takes 266 chunks
 ]
 
 
@@ -47,6 +62,42 @@ def test_kernel_matches_plain_version(card, shape, causal, window, dtype, atol):
     want = attention_ref(q, k, v, causal=causal, window=window)
     assert out.dtype == dtype
     torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,window", [
+    ((4, 333, 333, 1024), False, None),
+    ((2, 333, 333, 1024), True, 70),
+    ((1, 200, 150, 1024), True, 1),
+    ((1, 16, 17000, 1024), False, None),
+])
+def test_split_kv_passes_match_plain_versions(card, shape, causal, window):
+    """Each pass of the split-KV route against its plain version: the
+    partials (m exactly NEG_INF and l = 0 where a chunk holds no key of a
+    row), and the merge of the plain partials (f32 atol = rtol = 2e-5)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_partial_ref,
+        merge_partials_ref,
+    )
+
+    bh, sq, sk, d = shape
+    r = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(r.standard_normal((bh, n, d)).astype(np.float32))
+               .to(card) for n in (sq, sk, sk))
+    o, m, l = fk.split_kv_partials(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    wo, wm, wl = attention_partial_ref(q, k, v, chunk=fk.SPLIT_KV_CHUNK,
+                                       causal=causal, window=window)
+    assert torch.equal(l > 0, wl > 0)
+    assert torch.equal(m[wl == 0], wm[wl == 0])
+    torch.testing.assert_close(m, wm, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(l, wl, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(o, wo, atol=2e-5, rtol=2e-5)
+    merged = fk.split_kv_merge(wo, wm, wl)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(merged, merge_partials_ref(wo, wm, wl),
+                               atol=2e-5, rtol=2e-5)
 
 
 # ------------------------------------------------------- fused LoRA matmul

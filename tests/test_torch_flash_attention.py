@@ -18,7 +18,11 @@ from repro.kernels.flash_attention.ref import attention_ref as j_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.kernels.flash_attention.ops import mha
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_partial_ref,
+    attention_ref,
+    merge_partials_ref,
+)
 from repro_torch.nn import layers as tl
 
 GRID = [
@@ -186,3 +190,102 @@ def test_kernel_checks_head_dim(monkeypatch, d, ok):
     else:
         with pytest.raises(ValueError, match="head dim"):
             fa_kernel._check(x, x, x)
+
+
+# ------------------------------------------- the CUDA kernel's arithmetic
+# The kernel cannot run here.  What it computes at head dims 64 and 1024 is
+# emulated in plain torch: 3xTF32 products (split-precision TF32 on the
+# tensor cores, f32 sums) and the split-KV partials and their merge.
+
+def _tf32(x: torch.Tensor, rounding: str) -> torch.Tensor:
+    """f32 reduced to TF32 (10 mantissa bits): cut (the low 13 bits set to
+    0, as the kernel's ``split`` does) or rounded to nearest with ties away
+    from zero (``cvt.rna.tf32.f32``)."""
+    bits = x.contiguous().view(torch.int32)
+    if rounding == "rna":
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a: torch.Tensor, b: torch.Tensor, passes: int, rounding):
+    """a @ b with TF32 operands and f32 sums: one pass (hi * hi), or three
+    (hi * hi + hi * lo + lo * hi, with lo = tf32(x - hi))."""
+    ah, bh = _tf32(a, rounding), _tf32(b, rounding)
+    out = ah @ bh
+    if passes == 3:
+        out = (out + ah @ _tf32(b - bh, rounding)
+               + _tf32(a - ah, rounding) @ bh)
+    return out
+
+
+def _tf32_attention(q, k, v, passes, rounding):
+    s = _tf32_product(q / np.sqrt(q.shape[-1]), k.transpose(-1, -2), passes,
+                      rounding)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return (_tf32_product(p, v, passes, rounding)
+            / p.sum(dim=-1, keepdim=True))
+
+
+@pytest.mark.parametrize("rounding", ["cut", "rna"])
+@pytest.mark.parametrize("shape", [(1, 4429, 4429, 64), (1, 333, 333, 1024)],
+                         ids=["mmdit", "text"])
+def test_split_tf32_products_hold_the_f32_gate(shape, rounding):
+    """3xTF32 attention lies within the f32 gate (2e-5) of the float64
+    reference at the path's sequence lengths, and one TF32 pass misses it:
+    the gate tells the two apart, so the kernel needs the three passes.
+    The kernel cuts its operands to TF32; rounding them to nearest holds
+    the gate too."""
+    bh, sq, sk, d = shape
+    r = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(r.standard_normal((bh, n, d)).astype(np.float32))
+               for n in (sq, sk, sk))
+    qd, kd, vd = q.double(), k.double(), v.double()
+    want = torch.softmax(qd @ kd.transpose(-1, -2) / np.sqrt(d), dim=-1) @ vd
+    err3 = float((_tf32_attention(q, k, v, 3, rounding).double()
+                  - want).abs().max())
+    err1 = float((_tf32_attention(q, k, v, 1, rounding).double()
+                  - want).abs().max())
+    assert err3 <= 2e-5, err3
+    assert err1 > 2e-5, err1
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 100, 333])
+@pytest.mark.parametrize("shape,causal,window", [
+    ((2, 333, 333, 64), False, None),
+    ((2, 333, 333, 64), True, None),        # later chunks wholly masked
+    ((2, 333, 333, 64), False, 40),         # earlier chunks wholly masked
+    ((1, 200, 150, 64), True, 1),           # rows 150.. see no key at all
+], ids=["full", "causal", "window", "rows-masked"])
+def test_split_kv_partials_merge_to_attention(shape, causal, window, chunk):
+    """The split-KV kernel's plain versions: per-chunk partials merged
+    across chunks equal the whole attention within 1e-6, with wholly
+    masked chunks adding nothing and an all-masked row giving 0."""
+    bh, sq, sk, d = shape
+    r = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(r.standard_normal((bh, n, d)).astype(np.float32))
+               for n in (sq, sk, sk))
+    o, m, l = attention_partial_ref(q, k, v, chunk=chunk, causal=causal,
+                                    window=window)
+    assert o.shape == (-(-sk // chunk), bh, sq, d)
+    got = merge_partials_ref(o, m, l)
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    if (causal or window) and chunk < sk:
+        assert bool((l == 0).any())         # some chunk holds no key of a row
+    if window == 1:
+        assert torch.all(got[:, sk:] == 0)
+
+
+def test_split_kv_wrappers_take_plain_versions_on_the_cpu():
+    """On the CPU the split-KV pass wrappers run the plain versions, in
+    chunks of the kernel's width, and count no launch."""
+    r = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(r.standard_normal((1, n, 1024)).astype(np.float32))
+               for n in (70, 150, 150))
+    before = flash_attention.launches
+    o, m, l = fa_kernel.split_kv_partials(q, k, v, causal=True)
+    assert o.shape == (3, 1, 70, 1024)
+    got = fa_kernel.split_kv_merge(o, m, l)
+    torch.testing.assert_close(got, attention_ref(q, k, v, causal=True),
+                               atol=1e-6, rtol=0)
+    assert flash_attention.launches == before

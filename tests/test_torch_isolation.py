@@ -93,3 +93,22 @@ def test_probe_blocks_the_jax_package():
     out = subprocess.run([sys.executable, "-c", _PROBE, "repro.core"], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and "blocked" in out.stderr
+
+
+def test_chip_smoke_imports_neither_jax_nor_repro():
+    """The script that drives the port on the card imports the port and
+    torch, never JAX or the JAX package (read from its source: it exits
+    where no card is present)."""
+    import ast
+    from pathlib import Path
+
+    tree = ast.parse((Path(__file__).resolve().parents[1]
+                      / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module.split(".")[0])
+    assert "repro_torch" in names and "torch" in names
+    assert not names & {"jax", "jaxlib", "repro"}
