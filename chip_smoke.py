@@ -21,8 +21,9 @@ Phases (any failed check raises, and the script exits non-zero):
    kernels: the JAX package's grids (``tests/test_kernels.py``, f32
    atol = rtol = 1e-4, bf16 1.5e-1; ``tests/test_multilora.py``, f32 1e-4,
    with idx = -1 rows and G*r up to 160) and the three full-width path
-   shapes in the path's types at atol 2e-5 * sqrt(K/64) (the f32 sums come
-   in another order, and their rounding grows with the depth K).  A row
+   shapes in the path's types at atol 2e-5 * sqrt(K/64) (the kernel's
+   split-TF32 products keep about 20 bits of each f32 operand and sum in
+   another order, and the rounding grows with the depth K).  A row
    with idx = -1 must give the same bits as when the whole batch has
    idx = -1.  ``quant_matmul`` bit for bit (its int32 sum is exact): the
    JAX package's grid (``tests/test_quant.py``), all-127 operands at
@@ -80,12 +81,16 @@ Phases (any failed check raises, and the script exits non-zero):
    (three prompts, two text adapters on the last layer's ``wo``) against
    each adapter folded in and run alone: 1e-4 relative.
 5b. Each LoRA kernel timed at its path shapes (as phase 5) beside its
-   plain version, the bound, and the composite of cuBLAS calls that
-   computes the same function (no single PyTorch call does; the port never
-   calls it).  A served row count other than phase 2's is first held
+   plain version, the composite of cuBLAS calls that computes the same
+   function (no single PyTorch call does; the port never calls it) and two
+   bounds: ``bound_ms`` at the rate of the kernel's TF32 passes (495
+   TFLOP/s over 2 passes for f32 x and bf16 W, over 3 for all f32), and,
+   on the ``[time]`` lines only, ``bound_f32_fma_ms`` at the f32 rate
+   outside the tensor cores.  A served row count other than phase 2's is first held
    against the plain version there, as in phase 2.
 6b. Where the time goes on the LoRA path: the mixed batch again under the
-   profiler; the grouped kernel's share of device time and the idle share.
+   profiler; the LoRA kernels' share of device time (the x @ A pre-pass
+   and the GEMM, ``LORA_KERNELS``) and the idle share.
 5c. Flash attention at each shape the LoRA path gave it that phase 5 did
    not cover (the three-request batch), held against the plain version
    (f32 atol 2e-5) and timed as in phase 5, both bounds included.
@@ -146,6 +151,8 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12,
 # grid and its merge
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_mma64_kernel",
                  "flash_splitkv_kernel", "flash_merge_kernel")
+# every CUDA kernel the LoRA wrappers launch: the x @ A pre-pass and the GEMM
+LORA_KERNELS = ("lora_xa_kernel", "lora_matmul_kernel")
 # the full-width fp32 image served through the kernel against the same
 # request served through the plain attention route, relative
 KERNEL_VS_PLAIN_REL = 1e-3
@@ -369,24 +376,32 @@ def check_lora_grouped(torch, lk, lref, shape, types, idx, atol, rtol):
         lref.lora_matmul_masked_ref(x, w, a, b, idx, scales), atol, rtol)
 
 
-def lora_bound_ms(m, k, n, g, r, rows_with_adapter, types, grouped) -> tuple:
+def lora_bound_ms(lk, m, k, n, g, r, rows_with_adapter, types,
+                  grouped) -> tuple:
     """Each input read once and the output written once, against the
     operations this run's rows need: x @ W for every row, and x @ A,
     (x A) @ B over r rank columns for each row that carries an adapter.
-    The products' type is the promotion of x's and W's."""
+    With an f32 operand, at the rate of the TF32 passes the kernel runs
+    per product (``lk.tf32_passes``: 2 for f32 x and bf16 W, 3 for all
+    f32), as its f32-accurate products run; all-bf16 at the bf16 rate.
+    Returns (ms, bound_by, ms at the f32 FMA rate or None)."""
     size = {"torch.float32": 4, "torch.bfloat16": 2}
     xb, wb, fb = (size[str(t)] for t in types)
     nbytes = (m * k * xb + k * n * wb + (k + n) * g * r * fb + m * n * xb
               + (m * 4 + g * 4 if grouped else 0))
     flops = 2.0 * m * k * n + 2.0 * rows_with_adapter * r * (k + n)
-    f32 = "torch.float32" in (str(types[0]), str(types[1]))
-    return bound(nbytes, flops, "float32" if f32 else "bfloat16")
+    if "torch.float32" not in (str(types[0]), str(types[1])):
+        return (*bound(nbytes, flops, "bfloat16"), None)
+    passes = lk.tf32_passes(types[0], types[1])
+    return (*bound(nbytes, passes * flops, "tf32"),
+            bound(nbytes, flops, "float32")[0])
 
 
-def time_lora(torch, lk, lref, spec, reps=10) -> dict:
+def time_lora(torch, lk, lref, spec, reps=10) -> tuple:
     """One LoRA kernel at one path shape: the kernel, its plain version and
     the cuBLAS composite that computes the same function, beside the
-    bound.  ``spec``: (grouped, M, K, N, G, r, types, idx groups)."""
+    bound; and the bound at the f32 FMA rate, for the ``[time]`` lines
+    only.  ``spec``: (grouped, M, K, N, G, r, types, idx groups)."""
     grouped, m, k, n, g, r, types, groups = spec
     x, w, a, b = lora_inputs(torch, m, k, n, g * r, types, seed=1)
     tname = "/".join(str(t).replace("torch.", "") for t in types)
@@ -408,14 +423,22 @@ def time_lora(torch, lk, lref, spec, reps=10) -> dict:
         plain = lambda: lref.lora_matmul_ref(x, w, a, b, scale=0.7)
         lib = lambda: (x @ w.float()).add_(((x @ a.float()) @ b.float()), alpha=0.7)
         label = "M=%d,K=%d,N=%d,r=%d,%s" % (m, k, n, r, tname)
-    bound_ms, bound_by = lora_bound_ms(m, k, n, g, r, rows, types, grouped)
+    bound_ms, bound_by, fma_ms = lora_bound_ms(lk, m, k, n, g, r, rows, types,
+                                               grouped)
     return {"shape": label,
             "ms": cuda_ms(torch, kern, reps),
             "plain_ms": cuda_ms(torch, plain, reps),
             "library_ms": cuda_ms(torch, lib, reps),
             "library": LIBRARY if grouped else
             "cuBLAS composite: x @ W.float() + s * (x @ A.float()) @ B.float()",
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by}, fma_ms
+
+
+def log_lora_time(timing, fma_ms, card) -> None:
+    """A ``[time]`` line of :func:`time_lora`'s numbers with the f32 FMA
+    bound beside them (the ``kernels`` line leaves it out)."""
+    log(f"[time] {json.dumps({**timing, 'bound_f32_fma_ms': fma_ms})}"
+        f"  [{card}]")
 
 
 # ------------------------------------------------------- int8 quant matmul
@@ -1243,8 +1266,8 @@ def main() -> None:
                   "single": (False, 24576, 1536, 1536, 1, 8, path_types, None)}
     lora_times = {}
     for key, spec in lora_specs.items():
-        lora_times[key] = time_lora(torch, lk, lref, spec)
-        log(f"[time] {json.dumps(lora_times[key])}  [{card}]")
+        lora_times[key], fma_ms = time_lora(torch, lk, lref, spec)
+        log_lora_time(lora_times[key], fma_ms, card)
     for m in lora_rows:
         if m != 24576:        # a served batch of another size: check, time
             groups = mmdit_groups[:m // 4096]
@@ -1256,12 +1279,12 @@ def main() -> None:
             log(f"[kernel] lora_matmul_grouped served M={m}: max|err| "
                 f"{err:.2e} <= {atol:.2e}")
             spec = (True, m, 1536, 1536, 2, 8, path_types, groups)
-            lora_times[f"mmdit-{m}"] = time_lora(torch, lk, lref, spec)
-            log(f"[time] {json.dumps(lora_times[f'mmdit-{m}'])}  [{card}]")
+            lora_times[f"mmdit-{m}"], fma_ms = time_lora(torch, lk, lref, spec)
+            log_lora_time(lora_times[f"mmdit-{m}"], fma_ms, card)
 
     # ------------------------------------ 6b. where the time goes, LoRA
     profile_path(torch, system, MIXED, card, "mixed LoRA batch",
-                 {"lora_matmul_grouped": ("lora_matmul_kernel",),
+                 {"lora_matmul_grouped": LORA_KERNELS,
                   "flash_attention": FLASH_KERNELS})
     del (system, ms, adapters, reqs, ml_images, a_img, other, solo_basic, img,
          backend, enc, enc_comps, pcs, got, solo, want)

@@ -1,5 +1,5 @@
-// Fused LoRA matmul for Hopper: y = x @ W + delta, one kernel template in two
-// forms.
+// Fused LoRA matmul for Hopper: y = x @ W + delta, one tensor-core template
+// in two forms.
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/lora_matmul/kernel.py:
 //   * `_lora_kernel_grouped` / `lora_matmul_grouped`: a batch mixing adapters,
@@ -12,99 +12,204 @@
 // x is [M, K], W [K, N], both row-major.  Accumulation is f32; the output is
 // written in x's dtype.  Type combinations (x, W, factors): (f32, f32, f32)
 // for the toy path and the text encoder, (f32, bf16, bf16) for the full-width
-// MMDiT path, (bf16, bf16, bf16) for the bf16 kernel grid.
+// MMDiT path, (bf16, bf16, bf16) for the bf16 kernel grid; the factors always
+// have W's type.
 //
-// Bound at the path's shape.  Every image-stream q/k/v/o projection of a
+// Bound at the path's shapes.  Every image-stream q/k/v/o projection of a
 // mixed-tenant batch at full SD3 width (3 requests x CFG 2 x 4096 tokens:
-// M = 24576, K = N = 1536, G = 2 adapters of rank 8) does
-// 2*M*K*(N + 2*G*r) = 1.18e11 operations counting the masked product over all
-// G*r columns as the TPU kernel computes it: 1.77 ms at the card's f32 rate
-// outside the tensor cores (67 TFLOP/s on an H100 SXM).  It moves 0.31 GB
-// (0.09 ms at 3.35 TB/s), so it is bound by operations.  This kernel computes
-// each row only against its own adapter's rank block, which is what the run's
-// data needs: 2*M*K*N + 2*(rows with an adapter)*r*(K + N) operations, 1.74 ms
-// when two of the three requests carry an adapter.  The inputs are f32 and the
-// path holds its results to f32, so the products run in f32 FMA on the CUDA
-// cores with TF32 off; tensor-core tiles (wgmma, TMA) wait for a tolerance
-// decision on TF32 or bf16.
+// M = 24576, K = N = 1536, G = 2 adapters of rank 8) needs
+// 2*M*K*N + 2*(rows with an adapter)*r*(K + N) = 1.17e11 operations when two
+// of the three requests carry an adapter, and moves 0.31 GB (0.09 ms at
+// 3.35 TB/s).  The text encoder's (M = 999, K = N = 4096, all f32) needs
+// 3.36e10 on 0.10 GB.  Both are bound by operations: at the f32 rate outside
+// the tensor cores (67 TFLOP/s on an H100 SXM) 1.74 and 0.50 ms; on the
+// tensor cores at the f32-accurate pass counts below (TF32, 495 TFLOP/s,
+// over 2 or 3 passes) 0.47 and 0.20 ms.
 //
-// Design.  Each block owns one 128x128 output tile and loops over K itself in
-// steps of 16 (the TPU kernel's sequential k grid axis becomes this loop); 256
-// threads each hold an 8x8 register tile of x @ W, fed by float4 reads of a
-// k-major x tile and a W tile in shared memory (4 shared loads per 64 FMAs).
-// The tiles are double-buffered: each thread issues the next K step's global
-// loads (16-byte loads where the rows are aligned) into registers before it
-// computes the current step, and stores them into the other buffer after, so
-// one barrier a step separates the two.  In the same loop the block
-// accumulates x @ A for its rows: two threads a row, each reads the row's 16
-// x values of the step once and sums them against every other rank column of
-// the row's own adapter (a transposed A_cat tile, float4 reads over k), adding
-// into an f32 [128, r] buffer in shared memory.  On the TPU the k axis runs in
-// order, so `xa` is computed once per m tile on the first n sweep and reused;
-// here blocks are independent, so every n tile recomputes it: 2*r/N, about 1 %
-// more operations at the MMDiT shape (2 % if all G*r columns were computed).
-// The epilogue reads each row's idx, scales its adapter's xa by scales[idx]
-// and multiplies by B_cat's rank block for the tile's columns (read through
-// the L1 cache: B_cat is 49 KB at the MMDiT shape); a row with idx < 0 adds
-// nothing, so its result does not depend on the other rows' adapters.  A row
-// whose idx is past the last adapter is written as NaN rather than read
-// outside A_cat.  Ragged edges in M, K, N are masked (zero-filled tiles,
-// guarded stores); G*r may be up to 256 (two stages and the [128, r] buffer
-// then take 221 KB of shared memory).  The block allocates nothing and
-// launches on the caller's stream.
+// Tolerance decision.  The path holds the kernel to its f32 plain version
+// within atol 2e-5*sqrt(K/64), the JAX grids within 1e-4.  TF32 keeps 10
+// mantissa bits, bf16 7, so a bf16 operand widened to f32 is exact in TF32
+// and an f32 one is cut into hi (the low 13 bits cleared) and lo (the
+// remainder, cut the same way).  The products run as
+// mma.sync.m16n8k8 TF32 passes whose count follows the operand types:
+//   (f32 x, bf16 W): lo(x) W + hi(x) W                      2 passes
+//   (f32 x, f32 W):  lo(x) hi(W) + hi(x) lo(W) + hi(x) hi(W)  3 passes
+//   (bf16, bf16):    x W                                     1 pass, exact
+// (tests/test_torch_lora_matmul.py emulates them at the path's widths: 2 and
+// 3 passes hold the gate by 11-21x, one pass misses it by over 100x).  The
+// tensor cores truncate as they accumulate, so no mma chain runs longer than
+// 8 k steps (one K tile of the GEMM, 4 k steps in the pre-pass): each chain
+// sums into fresh registers that join the running sums with rounded f32 adds
+// (chains over the whole of K = 4096 crossed the text shape's gate).
+//
+// Design: two kernels, both on the tensor cores with the same passes.
+// * lora_xa_kernel, the pre-pass: xa[m] = scale(m) * (x[m] @ A_cat) over row
+//   m's own rank block and 0 elsewhere (the mask of the TPU kernel), stored
+//   in x's dtype in the scratch the wrapper allocates ([M, round_up(G*r, 8)]
+//   so its rows take 16-byte copies).  A row with idx < 0 gets zeros; a row
+//   whose idx is G or more gets NaN, which poisons its output row rather
+//   than read outside A_cat.  One block of 8 warps per 16 rows and 16 rank
+//   columns; the warps split K (warp w takes 4 k steps in every 32) and
+//   load their fragments straight from global memory, 4 k steps ahead,
+//   then sum the 8 partial tiles in shared memory in a fixed order.  It
+//   reads x once more: 151 MB at the MMDiT shape, 0.045 ms at 3.35 TB/s.
+// * lora_matmul_kernel: y = [x | xa] @ [W ; B_cat], one GEMM over two K
+//   segments (K, then the G*r rank columns, each zero-filled to whole K
+//   tiles), so the LoRA delta rides the same mma tiles (G*r/K more work,
+//   1 % at the MMDiT shape) and no epilogue reads idx.  A row with idx < 0
+//   multiplies zeros: its bits do not depend on the other rows' adapters.
+//   One block of 8 warps per 128x128 output tile, each warp a 32x64 tile
+//   (2 x 8 m16n8 mma tiles).  x and W stream through a 3-stage cp.async
+//   ring of 16-byte copies (zero-filled past the ragged edges; element
+//   copies where a row is not 16-byte aligned), one barrier per K tile of
+//   64, and each K tile is one chain.  The k order inside each 8-wide mma
+//   step is permuted (slot t <-> k 2t, slot t+4 <-> k 2t+1), so an A
+//   fragment is two float2 (f32) or two 32-bit (bf16) shared loads, and the
+//   bf16 W fragments of 4 n tiles are one ldmatrix.x4.trans.  x is cut into
+//   hi and lo once per fragment and used for 8 n tiles, f32 W once per
+//   fragment and used for 2 m tiles.  Shared layouts, banks counted in
+//   4-byte words (32 banks):
+//     x f32 [128][72]:  float2 at (row g, k 2t): 8g + 2t, 16 lanes a phase
+//                       cover all 32 banks once;
+//     x bf16 [128][72]: word 36g + t = 4g + t: 32 distinct banks;
+//     W f32 [64][132]:  scalar at (k 2t, n g): 8t + g, and +4 for k 2t+1;
+//     W bf16 [64][136]: ldmatrix rows 272 bytes apart, 16 mod 128: the 8
+//                       rows of each phase hit 8 distinct 16-byte groups.
+//   Three stages take 207 KB (f32 W) or 159 KB (bf16 W).  Registers hold
+//   occupancy at one block of 8 warps per SM (64 running sums and 64 chain
+//   sums a thread).  128x128 tiles give 2304 blocks at the MMDiT shape
+//   (17.5 waves) and 256 at the text shape (1.94 waves: the second 94 %
+//   full, so the grid wastes 3 % there and needs no split-K).  mma.sync
+//   does not reach the tensor cores' full TF32 rate on Hopper; wgmma does,
+//   but its TF32 form takes W K-major, so W would first need a transpose.
+// Ragged edges in M, K and N are masked; G*r may be up to 256.  The kernels
+// allocate nothing and launch on the caller's stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int BM = 128, BN = 128, BK = 16, NT = 256;
-constexpr int LDX = BM + 4;   // k-major x tile row stride (float4-aligned)
-constexpr int LDR = BK + 4;   // row-major x tile and transposed A tile stride
+using bf16 = __nv_bfloat16;
+
 constexpr int kMaxRankCols = 256;
-constexpr int kAStaged = 2;   // A_cat elements a thread stages per K step
-static_assert(NT == 2 * BM && BM * BK == 8 * NT && BK * BN == 8 * NT,
-              "each thread moves 8 x and 8 W elements, two threads a row");
+constexpr int XA_ALIGN = 8;   // xa's row stride: G*r rounded up to this
+
+// ------------------------------------------------------------- helpers
+
+template <typename T>
+__host__ __device__ constexpr bool is_f32() {
+  return std::is_same<T, float>::value;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
+__device__ __forceinline__ void store_f32(bf16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// 8 consecutive elements at p as f32, `valid` of them in bounds (zeros
-// past them); one or two 16-byte loads when `vec` says p is aligned
-__device__ __forceinline__ void load8(const float* p, int valid, bool vec,
-                                      float (&v)[8]) {
-  if (vec && valid >= 8) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = i < valid ? p[i] : 0.f;
-  }
+// x ~ hi + lo, both TF32 (f32 bit patterns with the low 13 bits zero): hi
+// is x cut to 10 mantissa bits, lo the exact remainder cut the same way
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
 }
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, int valid,
-                                      bool vec, float (&v)[8]) {
-  if (vec && valid >= 8) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+
+// an operand as TF32: f32 cut into hi and lo, bf16 widened (exact; lo unused)
+template <typename T>
+__device__ __forceinline__ void tf32(float v, uint32_t& hi, uint32_t& lo) {
+  if constexpr (is_f32<T>())
+    split(v, hi, lo);
+  else
+    hi = __float_as_uint(v);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t b0, const uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[i][j] += a[i] b[j] in the passes of the types (TX for a, TW for b): the
+// low-part products first, then hi * hi; each pass runs over every (i, j)
+// before the next, so no mma waits on the one before it
+template <typename TX, typename TW, int I, int J>
+__device__ __forceinline__ void mma_passes(float (&d)[I][J][4],
+                                           const uint32_t (&ah)[I][4],
+                                           const uint32_t (&al)[I][4],
+                                           const uint32_t (&bh)[J][2],
+                                           const uint32_t (&bl)[J][2]) {
+  if constexpr (is_f32<TX>()) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  } else {
+    for (int i = 0; i < I; ++i)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = i < valid ? to_f32(p[i]) : 0.f;
+      for (int j = 0; j < J; ++j) mma_tf32(d[i][j], al[i], bh[j][0], bh[j][1]);
   }
+  if constexpr (is_f32<TW>()) {
+#pragma unroll
+    for (int i = 0; i < I; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j) mma_tf32(d[i][j], ah[i], bl[j][0], bl[j][1]);
+  }
+#pragma unroll
+  for (int i = 0; i < I; ++i)
+#pragma unroll
+    for (int j = 0; j < J; ++j) mma_tf32(d[i][j], ah[i], bh[j][0], bh[j][1]);
+}
+
+template <int I, int J>
+__device__ __forceinline__ void zero(float (&d)[I][J][4]) {
+#pragma unroll
+  for (int i = 0; i < I; ++i)
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[i][j][e] = 0.f;
+}
+
+// the running sums take a finished chain with rounded f32 adds
+template <int I, int J>
+__device__ __forceinline__ void join(float (&acc)[I][J][4],
+                                     float (&chain)[I][J][4]) {
+#pragma unroll
+  for (int i = 0; i < I; ++i)
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[i][j][e] += chain[i][j][e];
+        chain[i][j][e] = 0.f;
+      }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(ok ? 16 : 0)   // 0: zero-fill
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
 }
 
 template <typename T>
@@ -113,249 +218,347 @@ __device__ __forceinline__ bool vec_ok(const T* p, int row_len) {
          row_len % (16 / (int)sizeof(T)) == 0;
 }
 
-// this thread's i-th tile row (or column) of its 8: two runs of four
-__device__ __forceinline__ int tile_pos(int t, int i) {
-  return (i < 4 ? 0 : 64) + t * 4 + (i & 3);
-}
+// ------------------------------------------------- the pre-pass: xa
 
-// one stage of tiles: x^T [BK][LDX], W [BK][BN], x [BM][LDR], A_cat^T [GR][LDR]
-__host__ __device__ inline int stage_floats(int gr) {
-  return BK * LDX + BK * BN + BM * LDR + gr * LDR;
-}
+constexpr int XA_ROWS = 16, XA_COLS = 16, XA_WARPS = 8, XA_AHEAD = 4;
 
-size_t smem_bytes(int gr, int r) {
-  return sizeof(float) * (2 * (size_t)stage_floats(gr) + (size_t)BM * r) +
-         sizeof(int) * BM;
-}
-
-template <typename TX, typename TW, typename TF, bool kGrouped>
-__global__ void __launch_bounds__(NT, 2)
-lora_matmul_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-                   const TF* __restrict__ a, const TF* __restrict__ b,
-                   const int* __restrict__ idx,
-                   const float* __restrict__ scales, float scale,
-                   TX* __restrict__ out, int M, int K, int N, int G, int R) {
-  extern __shared__ float4 smem4[];
+template <typename TX, typename TF>
+__global__ void __launch_bounds__(XA_WARPS * 32)
+lora_xa_kernel(const TX* __restrict__ x, const TF* __restrict__ a,
+               const int* __restrict__ idx, const float* __restrict__ scales,
+               float scale, TX* __restrict__ xa, int M, int K, int G, int R,
+               int ldxa) {
+  constexpr int XJ = XA_COLS / 8;
+  __shared__ float part[XA_WARPS][XA_ROWS][XA_COLS + 1];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.x * XA_ROWS, c0 = blockIdx.y * XA_COLS;
   const int GR = G * R;
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int SF = stage_floats(GR);
-  float* sXA = smem + 2 * SF;                      // [BM][R] x @ A, own block
-  int* sIdx = reinterpret_cast<int*>(sXA + BM * R);
+  const int rows[2] = {m0 + g, m0 + g + 8};
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  // what this thread moves each K step: 8 k of x row xr_row, 8 n of W row wk
-  const int xr_row = tid >> 1, xr_k = (tid & 1) * 8;
-  const int wk = tid >> 4, wn = (tid & 15) * 8;
-  const bool x_vec = vec_ok(x, K), w_vec = vec_ok(w, N);
-  const int xm = m0 + xr_row;
+  auto xv = [&](int row, int k) {
+    return row < M && k < K ? to_f32(x[(size_t)row * K + k]) : 0.f;
+  };
+  auto av = [&](int k, int c) {
+    return k < K && c < GR ? to_f32(a[(size_t)k * GR + c]) : 0.f;
+  };
 
-  for (int i = tid; i < BM; i += NT) {
-    const int m = m0 + i;
-    sIdx[i] = m < M ? (kGrouped ? idx[m] : 0) : -1;
+  float acc[1][XJ][4], chain[1][XJ][4];
+  zero(acc);
+  zero(chain);
+  const int steps = (K + 7) / 8;
+  for (int s0 = warp * XA_AHEAD; s0 < steps; s0 += XA_WARPS * XA_AHEAD) {
+    // fragments of XA_AHEAD k steps (permuted k: slot t <-> 2t, t+4 <-> 2t+1)
+    float fa[XA_AHEAD][4], fb[XA_AHEAD][XJ][2];
+#pragma unroll
+    for (int u = 0; u < XA_AHEAD; ++u) {
+      const int k = (s0 + u) * 8 + 2 * t;
+      fa[u][0] = xv(rows[0], k);
+      fa[u][1] = xv(rows[1], k);
+      fa[u][2] = xv(rows[0], k + 1);
+      fa[u][3] = xv(rows[1], k + 1);
+#pragma unroll
+      for (int j = 0; j < XJ; ++j) {
+        fb[u][j][0] = av(k, c0 + 8 * j + g);
+        fb[u][j][1] = av(k + 1, c0 + 8 * j + g);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < XA_AHEAD; ++u) {
+      uint32_t ah[1][4], al[1][4], bh[XJ][2], bl[XJ][2];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tf32<TX>(fa[u][e], ah[0][e], al[0][e]);
+#pragma unroll
+      for (int j = 0; j < XJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) tf32<TF>(fb[u][j][e], bh[j][e], bl[j][e]);
+      mma_passes<TX, TF>(chain, ah, al, bh, bl);
+    }
+    join(acc, chain);   // a chain of at most XA_AHEAD k steps
   }
-  for (int e = tid; e < BM * R; e += NT) sXA[e] = 0.f;
 
-  // the K step at k0 into registers: global loads in flight while the
-  // block computes the step before
-  float xs[8], ws[8], as[kAStaged];
-  auto fetch = [&](int k0) {
-    load8(x + (size_t)xm * K + k0 + xr_k, xm < M ? K - k0 - xr_k : 0, x_vec,
-          xs);
-    const int kw = k0 + wk;
-    load8(w + (size_t)kw * N + n0 + wn, kw < K ? N - n0 - wn : 0, w_vec, ws);
 #pragma unroll
-    for (int i = 0; i < kAStaged; ++i) {
-      const int e = tid + i * NT, k = k0 + e / GR;
-      as[i] = (e < BK * GR && k < K) ? to_f32(a[(size_t)k * GR + e % GR]) : 0.f;
-    }
-  };
-  auto store = [&](int stage, int k0) {
-    float* sXt = smem + stage * SF;
-    float* sW = sXt + BK * LDX;
-    float* sXr = sW + BK * BN;
-    float* sAt = sXr + BM * LDR;
+  for (int j = 0; j < XJ; ++j)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) sXt[(xr_k + i) * LDX + xr_row] = xs[i];
-    float4* xr = reinterpret_cast<float4*>(sXr + xr_row * LDR + xr_k);
-    xr[0] = make_float4(xs[0], xs[1], xs[2], xs[3]);
-    xr[1] = make_float4(xs[4], xs[5], xs[6], xs[7]);
-    float4* wr = reinterpret_cast<float4*>(sW + wk * BN + wn);
-    wr[0] = make_float4(ws[0], ws[1], ws[2], ws[3]);
-    wr[1] = make_float4(ws[4], ws[5], ws[6], ws[7]);
-#pragma unroll
-    for (int i = 0; i < kAStaged; ++i) {
-      const int e = tid + i * NT;
-      if (e < BK * GR) sAt[(e % GR) * LDR + e / GR] = as[i];
-    }
-    for (int e = tid + kAStaged * NT; e < BK * GR; e += NT) {   // G*r > 32
-      const int k = k0 + e / GR;
-      sAt[(e % GR) * LDR + e / GR] =
-          k < K ? to_f32(a[(size_t)k * GR + e % GR]) : 0.f;
-    }
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  fetch(0);
-  store(0, 0);
+    for (int e = 0; e < 4; ++e)
+      part[warp][g + 8 * (e >> 1)][8 * j + 2 * t + (e & 1)] = acc[0][j][e];
   __syncthreads();
 
-  const int nk = (K + BK - 1) / BK;
-  for (int s = 0; s < nk; ++s) {
-    const bool more = s + 1 < nk;
-    if (more) fetch((s + 1) * BK);
-    const float* sXt = smem + (s & 1) * SF;
-    const float* sW = sXt + BK * LDX;
-    const float* sXr = sW + BK * BN;
-    const float* sAt = sXr + BM * LDR;
+  const int row = threadIdx.x / XA_COLS, col = threadIdx.x % XA_COLS;
+  const int m = m0 + row, c = c0 + col;
+  if (m >= M || c >= ldxa) return;
+  float sum = 0.f;
+#pragma unroll
+  for (int w = 0; w < XA_WARPS; ++w) sum += part[w][row][col];
+  const int gi = idx != nullptr ? idx[m] : 0;
+  float v;
+  if (gi >= G)
+    v = __int_as_float(0x7fc00000);   // no such adapter: poison the row
+  else if (gi < 0 || c >= GR || c / R != gi)
+    v = 0.f;                          // not this row's rank block
+  else
+    v = (idx != nullptr ? scales[gi] : scale) * sum;
+  store_f32(xa + (size_t)m * ldxa + c, v);
+}
 
+// ------------------------------------------ the GEMM: [x | xa] @ [W ; B]
+
+constexpr int BM = 128, BN = 128, BK = 64, NT = 256, STAGES = 3;
+constexpr int WM = 32, WN = 64;                 // warp tile: 4 x 2 warps
+constexpr int MI = WM / 16, NJ = WN / 8;        // mma tiles per warp
+static_assert(BM / WM * (BN / WN) * 32 == NT, "warp tiling");
+
+// shared row strides in elements (bank arithmetic in the header note)
+constexpr int LDA = BK + 8;
+template <typename T>
+__host__ __device__ constexpr int ldb() { return is_f32<T>() ? BN + 4 : BN + 8; }
+template <typename TX, typename TW>
+__host__ __device__ constexpr int stage_bytes() {
+  return BM * LDA * (int)sizeof(TX) + BK * ldb<TW>() * (int)sizeof(TW);
+}
+
+// a ROWS x COLS tile at src (row stride ld elements; rows_valid rows and
+// cols_valid columns in bounds, zeros past them) into dst (row stride LD):
+// 16-byte cp.async copies when `vec` (rows 16-byte aligned), else element
+// copies
+template <typename T, int ROWS, int COLS, int LD>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, const T* base,
+                                          size_t ld, int rows_valid,
+                                          int cols_valid, bool vec, int tid) {
+  constexpr int E = 16 / sizeof(T);
+  constexpr int CPR = COLS / E, CHUNKS = ROWS * CPR;
+  static_assert(CHUNKS % NT == 0, "whole chunks per thread");
+  if (vec) {
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float xv[8], wv[8];
-      const float* xk = sXt + kk * LDX;
-      const float* wkk = sW + kk * BN;
-      *reinterpret_cast<float4*>(xv) =
-          *reinterpret_cast<const float4*>(xk + ty * 4);
-      *reinterpret_cast<float4*>(xv + 4) =
-          *reinterpret_cast<const float4*>(xk + 64 + ty * 4);
-      *reinterpret_cast<float4*>(wv) =
-          *reinterpret_cast<const float4*>(wkk + tx * 4);
-      *reinterpret_cast<float4*>(wv + 4) =
-          *reinterpret_cast<const float4*>(wkk + 64 + tx * 4);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
+    for (int i = 0; i < CHUNKS / NT; ++i) {
+      const int c = tid + i * NT, r = c / CPR, col = (c % CPR) * E;
+      const bool ok = r < rows_valid && col < cols_valid;
+      cp_async16(dst + r * LD + col, ok ? src + r * ld + col : base, ok);
     }
-
-    // x @ A over this K step: two threads a row, each row against its own
-    // adapter's rank block (the row's 16 x values read once)
-    {
-      const int row = tid >> 1, g = sIdx[row];
-      if (g >= 0 && g < G) {
-        const float4* xr = reinterpret_cast<const float4*>(sXr + row * LDR);
-        const float4 x0 = xr[0], x1 = xr[1], x2 = xr[2], x3 = xr[3];
-        for (int j = tid & 1; j < R; j += 2) {
-          const float4* ar =
-              reinterpret_cast<const float4*>(sAt + (g * R + j) * LDR);
-          const float4 a0 = ar[0], a1 = ar[1], a2 = ar[2], a3 = ar[3];
-          float d = 0.f;
-          d = fmaf(x0.x, a0.x, d); d = fmaf(x0.y, a0.y, d);
-          d = fmaf(x0.z, a0.z, d); d = fmaf(x0.w, a0.w, d);
-          d = fmaf(x1.x, a1.x, d); d = fmaf(x1.y, a1.y, d);
-          d = fmaf(x1.z, a1.z, d); d = fmaf(x1.w, a1.w, d);
-          d = fmaf(x2.x, a2.x, d); d = fmaf(x2.y, a2.y, d);
-          d = fmaf(x2.z, a2.z, d); d = fmaf(x2.w, a2.w, d);
-          d = fmaf(x3.x, a3.x, d); d = fmaf(x3.y, a3.y, d);
-          d = fmaf(x3.z, a3.z, d); d = fmaf(x3.w, a3.w, d);
-          sXA[row * R + j] += d;
-        }
-      }
-    }
-
-    if (more) store((s + 1) & 1, (s + 1) * BK);
-    __syncthreads();   // the next stage is written, this one is read
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = tile_pos(ty, i);
-    const int m = m0 + row;
-    if (m >= M) continue;
-    const int g = sIdx[row];
-    float d[8];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) d[c] = 0.f;
-    if (g >= 0 && g < G) {
-      const float s = kGrouped ? scales[g] : scale;
-      for (int j = 0; j < R; ++j) {
-        const float xs_ = sXA[row * R + j] * s;
-        const TF* br = b + (size_t)(g * R + j) * N;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int n = n0 + tile_pos(tx, c);
-          if (n < N) d[c] = fmaf(xs_, to_f32(br[n]), d[c]);
-        }
-      }
-    }
-    TX* orow = out + (size_t)m * N;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int n = n0 + tile_pos(tx, c);
-      if (n >= N) continue;
-      float v = acc[i][c];
-      if (g >= G)
-        v = __int_as_float(0x7fc00000);   // no such adapter: poison the row
-      else if (g >= 0)
-        v += d[c];
-      store_f32(orow + n, v);
+  } else {
+    using Raw = std::conditional_t<sizeof(T) == 4, uint32_t, uint16_t>;
+    Raw* d = reinterpret_cast<Raw*>(dst);
+    const Raw* s = reinterpret_cast<const Raw*>(src);
+    for (int e = tid; e < ROWS * COLS; e += NT) {
+      const int r = e / COLS, col = e % COLS;
+      d[r * LD + col] = r < rows_valid && col < cols_valid ? s[r * ld + col]
+                                                           : Raw(0);
     }
   }
 }
 
-template <typename TX, typename TW, typename TF, bool kGrouped>
+// A fragments of one k step for MI m tiles: rows (g, g+8) of each, k pairs
+// (2t, 2t+1) read together; p points at (row g of tile 0, k 2t)
+template <typename TX>
+__device__ __forceinline__ void frag_a(const TX* p, uint32_t (&ah)[MI][4],
+                                       uint32_t (&al)[MI][4]) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const TX* q = p + 16 * i * LDA;
+    if constexpr (is_f32<TX>()) {
+      const float2 top = *reinterpret_cast<const float2*>(q);
+      const float2 bot = *reinterpret_cast<const float2*>(q + 8 * LDA);
+      split(top.x, ah[i][0], al[i][0]);
+      split(bot.x, ah[i][1], al[i][1]);
+      split(top.y, ah[i][2], al[i][2]);
+      split(bot.y, ah[i][3], al[i][3]);
+    } else {   // bf16 pairs: the lower k in the low half, exact in TF32
+      const uint32_t top = *reinterpret_cast<const uint32_t*>(q);
+      const uint32_t bot = *reinterpret_cast<const uint32_t*>(q + 8 * LDA);
+      ah[i][0] = top << 16;
+      ah[i][1] = bot << 16;
+      ah[i][2] = top & 0xffff0000u;
+      ah[i][3] = bot & 0xffff0000u;
+    }
+  }
+}
+
+// B fragments of one k step for NJ n tiles: (k 2t, n g) and (k 2t+1, n g);
+// sB points at the tile's k step row 0, warp column 0
+template <typename TW>
+__device__ __forceinline__ void frag_b(const TW* sB, int lane,
+                                       uint32_t (&bh)[NJ][2],
+                                       uint32_t (&bl)[NJ][2]) {
+  constexpr int LD = ldb<TW>();
+  const int g = lane >> 2, t = lane & 3;
+  if constexpr (is_f32<TW>()) {
+    const float* p = sB + 2 * t * LD + g;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      split(p[8 * j], bh[j][0], bl[j][0]);
+      split(p[LD + 8 * j], bh[j][1], bl[j][1]);
+    }
+  } else {   // ldmatrix.x4: matrix q is n tile j + q, lane's row k lane & 7
+    static_assert(NJ % 4 == 0, "whole ldmatrix.x4 loads");
+#pragma unroll
+    for (int j = 0; j < NJ; j += 4) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, sB + (lane & 7) * LD + 8 * (j + (lane >> 3)));
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        bh[j + q][0] = r[q] << 16;
+        bh[j + q][1] = r[q] & 0xffff0000u;
+      }
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, float a, float b, bool two,
+                                           bool vec) {
+  if (two && vec) {
+    if constexpr (is_f32<T>())
+      *reinterpret_cast<float2*>(p) = make_float2(a, b);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  } else {
+    store_f32(p, a);
+    if (two) store_f32(p + 1, b);
+  }
+}
+
+template <typename TX, typename TW>
+__global__ void __launch_bounds__(NT, 1)
+lora_matmul_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                   const TX* __restrict__ xa, const TW* __restrict__ b,
+                   TX* __restrict__ out, int M, int K, int N, int GR,
+                   int ldxa) {
+  constexpr int LDB = ldb<TW>();
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  auto sA = [&](int s) {
+    return reinterpret_cast<TX*>(smem + s * stage_bytes<TX, TW>());
+  };
+  auto sB = [&](int s) {
+    return reinterpret_cast<TW*>(smem + s * stage_bytes<TX, TW>() +
+                                 BM * LDA * (int)sizeof(TX));
+  };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int wm0 = (warp / (BN / WN)) * WM, wn0 = (warp % (BN / WN)) * WN;
+  const bool x_vec = vec_ok(x, K), w_vec = vec_ok(w, N) && vec_ok(b, N);
+  const bool xa_vec = vec_ok(xa, ldxa);
+  const int nk1 = (K + BK - 1) / BK, nk = nk1 + (GR + BK - 1) / BK;
+
+  // K tile `it` into stage it % STAGES: x and W, then xa and B_cat
+  auto load = [&](int it) {
+    const int s = it % STAGES;
+    if (it < nk1) {
+      const int k0 = it * BK;
+      load_tile<TX, BM, BK, LDA>(sA(s), x + (size_t)m0 * K + k0, x, K,
+                                 M - m0, K - k0, x_vec, tid);
+      load_tile<TW, BK, BN, LDB>(sB(s), w + (size_t)k0 * N + n0, w, N,
+                                 K - k0, N - n0, w_vec, tid);
+    } else {
+      const int k0 = (it - nk1) * BK;
+      load_tile<TX, BM, BK, LDA>(sA(s), xa + (size_t)m0 * ldxa + k0, xa,
+                                 ldxa, M - m0, ldxa - k0, xa_vec, tid);
+      load_tile<TW, BK, BN, LDB>(sB(s), b + (size_t)k0 * N + n0, b, N,
+                                 GR - k0, N - n0, w_vec, tid);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+
+  float acc[MI][NJ][4], chain[MI][NJ][4];
+  zero(acc);
+  zero(chain);
+  for (int it = 0; it < nk; ++it) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();   // tile it has landed; tile it - 1's stage is free
+    if (it + STAGES - 1 < nk) load(it + STAGES - 1);
+    cp_async_commit();
+
+    const TX* a0 = sA(it % STAGES) + (wm0 + g) * LDA + 2 * t;
+    const TW* b0 = sB(it % STAGES) + wn0;
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      uint32_t ah[MI][4], al[MI][4], bh[NJ][2], bl[NJ][2];
+      frag_a<TX>(a0 + 8 * kk, ah, al);
+      frag_b<TW>(b0 + 8 * kk * LDB, lane, bh, bl);
+      mma_passes<TX, TW>(chain, ah, al, bh, bl);
+    }
+    join(acc, chain);   // each K tile (8 k steps) is one chain
+  }
+  cp_async_wait<0>();
+
+  const bool o_vec = vec_ok(out, N);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int n = n0 + wn0 + 8 * j + 2 * t;
+      if (n >= N) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm0 + 16 * i + g + 8 * h;
+        if (m < M)
+          store_pair(out + (size_t)m * N + n, acc[i][j][2 * h],
+                     acc[i][j][2 * h + 1], n + 1 < N, o_vec);
+      }
+    }
+}
+
+template <typename TX, typename TW>
 int launch(const void* x, const void* w, const void* a, const void* b,
-           const int* idx, const float* scales, float scale, void* out, int m,
-           int k, int n, int g, int r, cudaStream_t stream) {
-  const size_t smem = smem_bytes(g * r, r);
-  auto kernel = lora_matmul_kernel<TX, TW, TF, kGrouped>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+           const int* idx, const float* scales, float scale, void* xa,
+           void* out, int m, int k, int n, int g, int r, cudaStream_t stream) {
+  const int gr = g * r, ldxa = (gr + XA_ALIGN - 1) / XA_ALIGN * XA_ALIGN;
+  dim3 xa_grid((m + XA_ROWS - 1) / XA_ROWS, (ldxa + XA_COLS - 1) / XA_COLS);
+  lora_xa_kernel<TX, TW><<<xa_grid, XA_WARPS * 32, 0, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TW*>(a), idx, scales,
+      scale, static_cast<TX*>(xa), m, k, g, r, ldxa);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  constexpr int smem = STAGES * stage_bytes<TX, TW>();
+  auto kernel = lora_matmul_kernel<TX, TW>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const TX*>(x), static_cast<const TW*>(w),
-      static_cast<const TF*>(a), static_cast<const TF*>(b), idx, scales, scale,
-      static_cast<TX*>(out), m, k, n, g, r);
+      static_cast<const TX*>(xa), static_cast<const TW*>(b),
+      static_cast<TX*>(out), m, k, n, gr, ldxa);
   return (int)cudaGetLastError();
-}
-
-template <bool kGrouped>
-int dispatch(const void* x, const void* w, const void* a, const void* b,
-             const int* idx, const float* scales, float scale, void* out, int m,
-             int k, int n, int g, int r, int xt, int wt, int ft,
-             cudaStream_t st) {
-  using bf16 = __nv_bfloat16;
-  if (xt == 0 && wt == 0 && ft == 0)
-    return launch<float, float, float, kGrouped>(x, w, a, b, idx, scales, scale,
-                                                 out, m, k, n, g, r, st);
-  if (xt == 0 && wt == 1 && ft == 1)
-    return launch<float, bf16, bf16, kGrouped>(x, w, a, b, idx, scales, scale,
-                                               out, m, k, n, g, r, st);
-  if (xt == 1 && wt == 1 && ft == 1)
-    return launch<bf16, bf16, bf16, kGrouped>(x, w, a, b, idx, scales, scale,
-                                              out, m, k, n, g, r, st);
-  return -1;
 }
 
 }  // namespace
 
 // x [m, k], w [k, n], a [k, g*r], b [g*r, n], out [m, n]: contiguous device
-// arrays; dtype codes 0 = float32, 1 = bfloat16 for x (and out), w and the
-// factors a, b.  `idx` ([m] int32) and `scales` ([g] float32) select the
-// grouped form; with `idx` null the single-adapter form runs with g = 1 and
-// `scale`.  Launches on `stream` and returns the CUDA error of the launch (0
-// on success), or -1 for a type combination or size the kernel does not take.
+// arrays; dtype codes 0 = float32, 1 = bfloat16 for x (and out, and the
+// scratch xa), w and the factors a, b.  `xa` is scratch of
+// [m, round_up(g*r, 8)] elements of x's dtype.  `idx` ([m] int32) and
+// `scales` ([g] float32) select the grouped form; with `idx` null the
+// single-adapter form runs with g = 1 and `scale`.  Launches the pre-pass
+// and the GEMM on `stream` and returns the CUDA error of the launches (0 on
+// success), or -1 for a type combination or size the kernels do not take.
 extern "C" int lora_matmul_fwd(const void* x, const void* w, const void* a,
                                const void* b, const void* idx,
-                               const void* scales, float scale, void* out,
-                               int m, int k, int n, int g, int r, int x_dtype,
-                               int w_dtype, int f_dtype, void* stream) {
+                               const void* scales, float scale, void* xa,
+                               void* out, int m, int k, int n, int g, int r,
+                               int x_dtype, int w_dtype, int f_dtype,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (m <= 0 || n <= 0 || k < 0 || g <= 0 || r <= 0 ||
-      g * r > kMaxRankCols || (idx == nullptr && g != 1))
+      g * r > kMaxRankCols || (idx == nullptr && g != 1) || f_dtype != w_dtype)
     return -1;
   const int* ip = static_cast<const int*>(idx);
   const float* sp = static_cast<const float*>(scales);
-  if (idx != nullptr)
-    return dispatch<true>(x, w, a, b, ip, sp, scale, out, m, k, n, g, r,
-                          x_dtype, w_dtype, f_dtype, st);
-  return dispatch<false>(x, w, a, b, ip, sp, scale, out, m, k, n, g, r,
-                         x_dtype, w_dtype, f_dtype, st);
+  if (x_dtype == 0 && w_dtype == 0)
+    return launch<float, float>(x, w, a, b, ip, sp, scale, xa, out, m, k, n,
+                                g, r, st);
+  if (x_dtype == 0 && w_dtype == 1)
+    return launch<float, bf16>(x, w, a, b, ip, sp, scale, xa, out, m, k, n, g,
+                               r, st);
+  if (x_dtype == 1 && w_dtype == 1)
+    return launch<bf16, bf16>(x, w, a, b, ip, sp, scale, xa, out, m, k, n, g,
+                              r, st);
+  return -1;
 }

@@ -3,15 +3,19 @@
 Replaces the Pallas TPU kernels ``lora_matmul`` / ``_lora_kernel`` and
 ``lora_matmul_grouped`` / ``_lora_kernel_grouped``
 (``src/repro/kernels/lora_matmul/kernel.py``).  Both forms are one template
-in ``csrc/lora_matmul.cu``; its header note gives the bound at the main
-path's shape and what the design does about it.  The source is compiled
-with ``nvcc`` for ``sm_90a`` at first use (:mod:`repro_torch.kernels.build`)
-and bound with ``ctypes``.
+in ``csrc/lora_matmul.cu``: a pre-pass kernel that writes each row's
+scaled ``x @ A`` over its own rank block into scratch, then one GEMM of
+``[x | xa] @ [W ; B]``, both on the tensor cores in split-precision TF32
+with a pass count that follows the operand types (:func:`tf32_passes`).
+Its header note gives the bound at the main path's shapes, the tolerance
+decision and what the design does about them.  The source is compiled with
+``nvcc`` for ``sm_90a`` at first use (:mod:`repro_torch.kernels.build`) and
+bound with ``ctypes``.
 
 Each wrapper takes its plain version (:mod:`.ref`) only for tensors on the
 CPU.  For CUDA tensors it launches the kernel or raises: there is no
 fallback.  ``lora_matmul.launches`` and ``lora_matmul_grouped.launches``
-count the kernel launches.
+count the wrapper calls that launch the kernels (one each).
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ from repro_torch.kernels.lora_matmul.ref import (
 )
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "lora_matmul.cu"
-MAX_RANK_COLS = 256          # G*r the kernel's shared-memory plan covers
+MAX_RANK_COLS = 256          # G*r the kernels take
+XA_ALIGN = 8                 # the scratch's row stride: G*r rounded up to it
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (x, W, factors) combinations the source instantiates
 _TYPES = {(torch.float32, torch.float32, torch.float32),
@@ -39,13 +44,22 @@ _TYPES = {(torch.float32, torch.float32, torch.float32),
 _fwd: Any = None
 
 
+def tf32_passes(x_dtype: torch.dtype, w_dtype: torch.dtype) -> int:
+    """TF32 tensor-core products the kernel runs per product of x and W
+    (and of x and the factors, whose type is W's): an f32 operand is cut
+    into TF32 hi and lo parts, a bf16 one is exact in TF32.  3 for
+    (f32, f32): hi*hi + hi*lo + lo*hi; 2 for (f32, bf16): hi*W + lo*W; 1
+    for (bf16, bf16)."""
+    return 1 + (x_dtype == torch.float32) + (w_dtype == torch.float32)
+
+
 def _kernel() -> Any:
     """The bound C entry point (builds the library on first call)."""
     global _fwd
     if _fwd is None:
         fn = ctypes.CDLL(str(build(SOURCE))).lora_matmul_fwd
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float]
-                       + [ctypes.c_void_p] + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fwd = fn
@@ -86,14 +100,18 @@ def _launch(x, w, a, b, idx: Optional[torch.Tensor],
     m, k = x.shape
     n = w.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    # the pre-pass's x @ A per row, masked and scaled, for the GEMM to read
+    xa = torch.empty((m, -(-g * r // XA_ALIGN) * XA_ALIGN), dtype=x.dtype,
+                     device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _kernel()(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             None if idx is None else idx.data_ptr(),
             None if scales is None else scales.data_ptr(), float(scale),
-            out.data_ptr(), m, k, n, g, r, _DTYPE_CODES[x.dtype],
-            _DTYPE_CODES[w.dtype], _DTYPE_CODES[a.dtype], stream)
+            xa.data_ptr(), out.data_ptr(), m, k, n, g, r,
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[w.dtype],
+            _DTYPE_CODES[a.dtype], stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err} (M={m}, K={k}, N={n}, G={g}, r={r}, "

@@ -153,6 +153,88 @@ def test_lora_kernels_match_plain_versions(card, dtypes, tol):
     assert torch.equal(outg[plain], none[plain])
 
 
+def _cycle_idx(card, m, g):
+    return torch.tensor([(i % (g + 1)) - 1 for i in range(m)],
+                        dtype=torch.int32, device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtypes", [
+    ((300, 4096, 520, 2, 8), (torch.float32,) * 3),          # text depth
+    ((300, 1536, 520, 2, 8),
+     (torch.float32, torch.bfloat16, torch.bfloat16)),       # MMDiT depth
+], ids=["k4096-f32", "k1536-f32-bf16"])
+def test_lora_kernels_hold_the_path_gate_at_deep_k(card, shape, dtypes):
+    """Both forms at the path's depths hold the path gate, atol
+    2e-5*sqrt(K/64) (rtol 0), with rows of each adapter and none; the
+    idx = -1 rows are the bits of an all-(-1) batch."""
+    from repro_torch.kernels.lora_matmul import kernel as lk
+    from repro_torch.kernels.lora_matmul.ref import (
+        lora_matmul_masked_ref,
+        lora_matmul_ref,
+    )
+
+    m, k, n, g, r = shape
+    atol = 2e-5 * np.sqrt(k / 64)
+    x, w, a_cat, b_cat = _lora_inputs(card, m, k, n, g, r, dtypes)
+    idx = _cycle_idx(card, m, g)
+    scales = torch.tensor([0.5, 0.75], device=card)
+    outg = lk.lora_matmul_grouped(x, w, a_cat, b_cat, idx, scales)
+    a, b = a_cat[:, :r].contiguous(), b_cat[:r].contiguous()
+    out = lk.lora_matmul(x, w, a, b, scale=0.7)
+    none = lk.lora_matmul_grouped(x, w, a_cat, b_cat, torch.full_like(idx, -1),
+                                  scales)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        outg, lora_matmul_masked_ref(x, w, a_cat, b_cat, idx, scales),
+        atol=atol, rtol=0)
+    torch.testing.assert_close(out, lora_matmul_ref(x, w, a, b, scale=0.7),
+                               atol=atol, rtol=0)
+    assert torch.equal(outg[idx < 0], none[idx < 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (333, 1000, 301, 2, 8),    # N odd: W rows take element copies
+    (129, 37, 130, 3, 5),      # K odd: x rows take element copies
+    (257, 300, 200, 4, 64),    # G*r = 256: 8 rank K tiles, 16 column groups
+    (1, 8, 8, 1, 1),
+], ids=["n-odd", "k-odd", "rank-256", "one-row"])
+@pytest.mark.parametrize("dtypes,tol", LORA_TYPES)
+def test_lora_kernels_mask_ragged_edges(card, shape, dtypes, tol):
+    """M, K and N that are no multiples of the 128 x 128 x 32 tiles, rows
+    that are not 16-byte aligned, and the largest G*r, against the plain
+    versions (f32 1e-4, bf16 1.5e-1); a row whose index is G is NaN."""
+    from repro_torch.kernels.lora_matmul import kernel as lk
+    from repro_torch.kernels.lora_matmul.ref import (
+        lora_matmul_masked_ref,
+        lora_matmul_ref,
+    )
+
+    m, k, n, g, r = shape
+    x, w, a_cat, b_cat = _lora_inputs(card, m, k, n, g, r, dtypes)
+    idx = _cycle_idx(card, m, g)
+    scales = torch.tensor([0.5 + 0.25 * i for i in range(g)], device=card)
+    outg = lk.lora_matmul_grouped(x, w, a_cat, b_cat, idx, scales)
+    a, b = a_cat[:, :r].contiguous(), b_cat[:r].contiguous()
+    out = lk.lora_matmul(x, w, a, b, scale=1.3)
+    torch.cuda.synchronize()
+    assert outg.shape == out.shape == (m, n)
+    torch.testing.assert_close(
+        outg.float(),
+        lora_matmul_masked_ref(x, w, a_cat, b_cat, idx, scales).float(),
+        atol=tol, rtol=tol)
+    torch.testing.assert_close(
+        out.float(), lora_matmul_ref(x, w, a, b, scale=1.3).float(),
+        atol=tol, rtol=tol)
+    bad = idx.clone()
+    bad[0] = g
+    poisoned = lk.lora_matmul_grouped(x, w, a_cat, b_cat, bad, scales)
+    torch.cuda.synchronize()
+    assert bool(poisoned[0].isnan().all())
+    assert torch.equal(poisoned[1:], outg[1:])
+
+
 @pytest.mark.cuda
 def test_lora_kernels_refuse_what_they_do_not_take(card):
     """On the card the wrappers launch the kernel or raise: CPU operands,

@@ -139,6 +139,66 @@ def test_cpu_route_launches_no_kernel_and_checks_indices():
         lora_matmul_masked_ref(x, w, a, b, torch.full((6,), 2), torch.ones(2))
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 cut to TF32 (the low 13 bits set to 0), as the kernel cuts."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a, b, a_exact, b_exact, passes):
+    """a @ b as the kernel forms it on the tensor cores, in f32 sums: one
+    pass is hi(a) @ hi(b); more add lo(a) @ hi(b) for an f32 a and
+    hi(a) @ lo(b) for an f32 b, with lo = tf32(x - hi).  A bf16 operand
+    (``*_exact``) is exact in TF32 and has no low part."""
+    ah = a if a_exact else _tf32(a)
+    bh = b if b_exact else _tf32(b)
+    out = ah @ bh
+    if passes > 1 and not a_exact:
+        out = out + _tf32(a - ah) @ bh
+    if passes > 1 and not b_exact:
+        out = out + ah @ _tf32(b - bh)
+    return out
+
+
+@pytest.mark.parametrize("shape,w_dtype", [
+    ((256, 1536, 1536), torch.bfloat16),    # MMDiT q/k/v/o, f32 x
+    ((256, 4096, 4096), torch.float32),     # text encoder, all f32
+], ids=["mmdit", "text"])
+def test_split_tf32_passes_hold_the_path_gate(shape, w_dtype):
+    """The grouped kernel's split-TF32 products at the path's depths and
+    widths (few rows): x @ W plus the masked x @ A_cat, rounded to f32 as
+    the kernel stores it, then @ B_cat, with the kernel's pass count (2
+    for bf16 W, 3 for f32 W) lie within the path gate 2e-5*sqrt(K/64) of
+    float64, and one pass misses it.  Inputs scaled as chip_smoke.py's
+    lora_inputs: x ~ N(0, 1), W and A_cat ~ N(0, 1)/sqrt(K), B_cat ~ N(0, 1)."""
+    m, k, n = shape
+    g, r = 2, 8
+    x, w, a, b = _draw(8, (m, k), (k, n), (k, g * r), (g * r, n),
+                       scale=[0, k, k, 0])
+    x = torch.from_numpy(x)
+    w, a, b = (torch.from_numpy(t).to(w_dtype).float() for t in (w, a, b))
+    idx = torch.arange(m) * 3 // m - 1                 # blocks of -1, 0, 1
+    scales = torch.tensor([0.5, 0.75])
+    mask = torch.zeros((m, g * r))
+    for i in range(g):
+        mask[idx == i, i * r:(i + 1) * r] = scales[i]
+    xd = x.double()
+    want = xd @ w.double() + ((xd @ a.double()) * mask.double()) @ b.double()
+    exact = w_dtype == torch.bfloat16
+    passes = tk.tf32_passes(torch.float32, w_dtype)
+    assert passes == (2 if exact else 3)
+    gate = 2e-5 * np.sqrt(k / 64)
+
+    def err(p):
+        xa = _tf32_product(x, a, False, exact, p) * mask
+        y = (_tf32_product(x, w, False, exact, p)
+             + _tf32_product(xa, b, False, exact, p))
+        return float((y.double() - want).abs().max())
+
+    held, missed = err(passes), err(1)
+    assert held <= gate, (held, gate)
+    assert missed > gate, (missed, gate)
+
+
 def _numpy_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
