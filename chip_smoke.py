@@ -6,8 +6,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failed check raises, and the script exits non-zero):
 
 1. Card: name and power limit, versions, and the build of every CUDA
-   kernel from the checkout's sources (one ``nvcc`` per source, all four
-   started together, into ``build/``), with ptxas's registers and spills.
+   kernel from the checkout's sources (one ``nvcc`` per source, all five
+   started together, into ``build/``), with ptxas's registers and spills;
+   every instantiation of the int8 route's two kernels is listed by name
+   and must spill nothing.
 2. Each kernel against its plain PyTorch version on the card.  Flash
    attention: the JAX package's kernel grid (f32 atol 2e-5, bf16 3e-2),
    causal and window bands at head dims 64 and 1024 (wholly masked tiles
@@ -27,7 +29,12 @@ Phases (any failed check raises, and the script exits non-zero):
    with idx = -1 must give the same bits as when the whole batch has
    idx = -1.  ``quant_matmul`` bit for bit (its int32 sum is exact): the
    JAX package's grid (``tests/test_quant.py``), all-127 operands at
-   K = 16384, and every full-width path shape.  ``rglru_scan`` within 2e-5
+   K = 16384 (split along K and not), each route of ``kernel.plan`` (M 1,
+   4, 64, 333, 1332, ragged M, N and K, byte loads, split-K), and every
+   full-width path shape.  ``quantize_rows`` bit for bit against
+   ``quantize_rows_ref`` at every (M, K) the path quantizes and at ragged
+   and long rows, with an all-zero row and rows of exact .5 quotients.
+   ``rglru_scan`` within 2e-5
    (``tests/test_kernels.py``'s tolerance) on the JAX package's grid and at
    RecurrentGemma-2B width (D 2560; B 1, T 8192 and B 8, T 2048).
 3. Toy size, card against CPU on the same weights and latents: one
@@ -99,24 +106,30 @@ Phases (any failed check raises, and the script exits non-zero):
    the same seeds, quantized on load.  Counts set to 0 just before and read
    just after: ``quant_matmul`` exactly 1344 launches per 4-step segment
    dispatch (24 layers x 2 streams x 7 projections x 4 steps) plus 12 per
-   text batch, flash attention as in phase 4.  Images as in phase 4, and
-   each within ``INT8_VS_FP32_REL`` of phase 4's fp32 image.  The same
-   requests served again with the script putting the plain version in the
-   kernel's place: within 1e-6 relative, bit-identity printed.
+   text batch, ``quantize_rows`` exactly as often, flash attention as in
+   phase 4.  Images as in phase 4, and each within ``INT8_VS_FP32_REL`` of
+   phase 4's fp32 image.  The same requests served again with the script
+   putting both plain versions in the kernels' places: bit-identical (the
+   relative error, 0, is printed).
 5q. ``quant_matmul`` at every shape the int8 path gave it (checked bit for
-   bit first where phase 2 did not), timed as in phase 5 beside its plain
-   version, the bound, ``torch._int_mm`` with the same epilogue (a
-   yardstick the port never calls; null where its shape rules refuse), the
-   plain activation quantization and the float32 product of the "off"
-   route.  ``rglru_scan`` timed at RecurrentGemma-2B width beside its plain
-   version and its bound (no PyTorch call computes the recurrence).
+   bit first where phase 2 did not), timed as in phase 5 (one wrapper call,
+   host work included) and by the profiler (``device_ms``: its kernels'
+   device time alone) beside its plain version, the bound,
+   ``torch._int_mm`` with the same epilogue (a yardstick the port never
+   calls; null where its shape rules refuse) and the float32 product of
+   the "off" route; ``quantize_rows`` at every (M, K) the path gave it,
+   timed the same two ways, beside its plain version and its bytes bound
+   (no PyTorch call computes it).  ``rglru_scan`` timed at
+   RecurrentGemma-2B width beside its plain version and its bound (no
+   PyTorch call computes the recurrence).
 6q. Where the time goes on the int8 path: the two requests again under the
-   profiler, with the activation quantization named by a
-   ``record_function`` range the script wraps around it.
+   profiler; both kernels' device time and shares of busy time
+   (``QUANT_KERNELS`` and ``quantize_rows_kernel``).
 
 The phases run in the order 1, 2, 3, 4, 5, 6, 4q, 5q, 6q, 4b, 4c, 5b, 6b,
 5c.  Before the last two lines, one JSON ``kernels`` line lists every
-kernel: its ``launches`` are the count from its own path's run (the
+kernel, ``quantize_rows`` (which replaces plain code, not a Pallas kernel)
+among them: its ``launches`` are the count from its own path's run (the
 single-adapter LoRA kernel and ``rglru_scan`` have no serving path: 0), and
 each leads with the largest shape its
 path launched, the others under ``other_shapes``.  The line before the last
@@ -153,6 +166,9 @@ FLASH_KERNELS = ("flash_fwd_kernel", "flash_mma64_kernel",
                  "flash_splitkv_kernel", "flash_merge_kernel")
 # every CUDA kernel the LoRA wrappers launch: the x @ A pre-pass and the GEMM
 LORA_KERNELS = ("lora_xa_kernel", "lora_matmul_kernel")
+# every CUDA kernel the quant_matmul wrapper launches: the GEMM and, for a
+# product split along K, the kernel that adds the int32 partial sums
+QUANT_KERNELS = ("quant_matmul_kernel", "quant_splitk_epilogue_kernel")
 # the full-width fp32 image served through the kernel against the same
 # request served through the plain attention route, relative
 KERNEL_VS_PLAIN_REL = 1e-3
@@ -187,6 +203,19 @@ TENANT_FOLD_REL = 1e-2
 LIBRARY = "cuBLAS composite: x @ W.float() + ((x @ A_cat.float()) * mask) @ B_cat.float()"
 # (M, K, N): tests/test_quant.py's int8 grid
 QUANT_GRID = [(1, 8, 8), (5, 24, 40), (33, 128, 96), (128, 100, 200)]
+# each route of the CUDA product (kernel.plan): M 1, 4 and 64 on the 16-row
+# tiles (split along K), 333 (split along K at K 16384) and 1332 on the
+# 64-row tiles, ragged M on the 128-row tiles, then byte loads (K or N not a
+# multiple of 16), split or not
+QUANT_ROUTES = [(1, 1536, 9216), (4, 1536, 9216), (64, 4096, 1536),
+                (333, 4096, 4096), (333, 16384, 4096), (1332, 1536, 1536),
+                (2000, 1536, 6144), (37, 200, 130), (3, 1000, 72),
+                (700, 999, 4100)]
+# (M, K) for the row quantization beyond the path's shapes: ragged K (K % 4
+# != 0 takes element loads), 32 to 1024 threads a row, and rows longer than
+# the registers hold (read twice)
+ROWS_EDGE = [(1, 17), (37, 1000), (9, 1001), (5, 3001), (3, 20000),
+             (2, 40000), (2, 40001)]
 QUANT_LIBRARY = "torch._int_mm(xq, wq).float() * xs * ws"
 # the int8 image against the fp32 one, relative: int8 moves the served
 # image by a few 1e-2 (the JAX package: 2.8e-2 to 3.5e-2 at the toy size);
@@ -227,6 +256,22 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, reps: int = 10) -> float:
+    """Mean device milliseconds of the CUDA kernels ``fn`` launches (the
+    profiler), without the wrapper's host work that a single call's event
+    time holds where the kernel is short."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / reps / 1e3
 
 
 def bound(nbytes: float, flops: float, dtype_name: str) -> tuple:
@@ -473,6 +518,74 @@ def check_quant(torch, qk, qref, shape, fill=None) -> float:
     return float((out - want).abs().max())
 
 
+def quant_route(torch, qk, shape) -> str:
+    """The route and split the kernel takes at ``shape`` on this card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    route, splits = qk.plan(*shape, sms)
+    return f"route {route}, {splits} split{'s' if splits > 1 else ''}"
+
+
+def rows_inputs(torch, m, k, seed=0):
+    """Normal draws on the card, with an all-zero row (scale 1) and rows
+    whose maximum is 127 * 2**e, so the scale is exactly 2**e and every
+    quotient lands on a .5 (round half to even decides it)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device="cuda") * 3
+    x[0] = 0.0
+    for row, e in ((1, 0), (2, -3), (3, 4)):
+        if row < m:
+            x[row] = (torch.randint(-127, 127, (k,), generator=gen,
+                                    device="cuda").float() + 0.5) * 2.0 ** e
+            x[row, k // 2] = 127.0 * 2.0 ** e
+    return x
+
+
+def check_rows(torch, qk, qref, shape) -> None:
+    """The row quantization against its plain version: the same bits, or
+    raise."""
+    x = rows_inputs(torch, *shape)
+    xq, xs = qk.quantize_rows(x)
+    torch.cuda.synchronize()
+    want_q, want_s = qref.quantize_rows_ref(x)
+    if not (torch.equal(xq, want_q) and torch.equal(xs, want_s)):
+        raise AssertionError(
+            f"quantize_rows {shape}: not bit-identical to its plain version "
+            f"({int((xq != want_q).sum())} values, "
+            f"{int((xs != want_s).sum())} scales differ)")
+
+
+def time_rows(torch, qk, qref, shape, reps=10) -> dict:
+    """The row quantization at one path shape beside its plain version and
+    its bound: x read once (4 bytes an element), xq written once (1 byte)
+    and the scales (4 bytes a row), against 3 float32 operations an element
+    (maximum, division, rounding).  No PyTorch call computes it."""
+    m, k = shape
+    x = rows_inputs(torch, m, k, seed=1)
+    bound_ms, bound_by = bound(5.0 * m * k + 4.0 * m, 3.0 * m * k, "float32")
+    return {"shape": "M=%d,K=%d,float32" % shape,
+            "ms": cuda_ms(torch, lambda: qk.quantize_rows(x), reps),
+            "device_ms": device_ms(torch, lambda: qk.quantize_rows(x)),
+            "plain_ms": cuda_ms(torch, lambda: qref.quantize_rows_ref(x), reps),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def ptxas_report(log_text) -> list:
+    """(function, registers, spill store bytes, spill load bytes) for each
+    entry function in ``nvcc -Xptxas -v`` output."""
+    out, name, spills = [], None, (0, 0)
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line and name:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            spills = (nums[1], nums[2])
+        elif "Used" in line and "registers" in line and name:
+            regs = int(line.split("Used")[1].split()[0])
+            out.append((name, regs, *spills))
+            name, spills = None, (0, 0)
+    return out
+
+
 def quant_bound_ms(m, k, n) -> tuple:
     """xq, wq and the two scale vectors read once, the float32 output
     written once, against 2*M*K*N int8 operations."""
@@ -480,12 +593,11 @@ def quant_bound_ms(m, k, n) -> tuple:
                  "int8")
 
 
-def time_quant(torch, qk, qref, qops, shape, reps=10) -> dict:
+def time_quant(torch, qk, qref, shape, reps=10) -> dict:
     """The kernel at one path shape beside its plain version, the bound,
     ``torch._int_mm`` with the same epilogue (None where its shape rules
-    refuse), the plain activation quantization that feeds the kernel, and
-    the float32 product the "off" route runs there (f32 x against a bf16
-    weight, as ``qdense`` computes it)."""
+    refuse), and the float32 product the "off" route runs there (f32 x
+    against a bf16 weight, as ``qdense`` computes it)."""
     m, k, n = shape
     xq, wq, xs, ws = quant_inputs(torch, m, k, n, seed=1)
     x = torch.randn((m, k), device="cuda")
@@ -501,11 +613,10 @@ def time_quant(torch, qk, qref, qops, shape, reps=10) -> dict:
         library_ms = None
     return {"shape": "M=%d,K=%d,N=%d,int8" % shape,
             "ms": cuda_ms(torch, lambda: qk.quant_matmul(xq, wq, xs, ws), reps),
+            "device_ms": device_ms(torch, lambda: qk.quant_matmul(xq, wq, xs, ws)),
             "plain_ms": cuda_ms(
                 torch, lambda: qref.quant_matmul_ref(xq, wq, xs, ws), reps),
             "library_ms": library_ms, "library": QUANT_LIBRARY,
-            "quantize_rows_ms": cuda_ms(torch, lambda: qops._quantize_rows(x),
-                                        reps),
             "off_route_f32_ms": cuda_ms(torch, lambda: x @ w.float(), reps),
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -563,13 +674,11 @@ def time_rglru(torch, rk, rref, shape, reps=10) -> dict:
 
 # -------------------------------------------------------------- serving
 
-def profile_path(torch, system, subs, card, label, kernels,
-                 ranges=None) -> dict:
+def profile_path(torch, system, subs, card, label, kernels) -> dict:
     """Serve ``subs`` again on the warm system under the profiler; device
-    time by kernel, the named kernels' shares and the idle share of the
-    window.  ``kernels`` maps a name to the substrings of the CUDA kernel
-    names it sums; ``ranges`` names ``record_function`` ranges whose
-    kernels' device time is reported as a share too."""
+    time by kernel, the named kernels' time and shares and the idle share
+    of the window.  ``kernels`` maps a name to the substrings of the CUDA
+    kernel names it sums."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -585,10 +694,7 @@ def profile_path(torch, system, subs, card, label, kernels,
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", 0) or 0
-        # a record_function range also shows on the device timeline: its
-        # kernels are counted once, under their own names
-        if (e.device_type.name == "CUDA" and dev_us > 0
-                and e.key not in (ranges or {}).values()):
+        if e.device_type.name == "CUDA" and dev_us > 0:
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
@@ -600,14 +706,10 @@ def profile_path(torch, system, subs, card, label, kernels,
     for name, keys in kernels.items():
         by_key = {key: sum(r[0] for r in rows if key in r[2]) for key in keys}
         ms = sum(by_key.values())
+        out[f"{name}_ms"] = ms if rows else "not measured"
         out[f"{name}_share_of_busy"] = ms / busy_ms if rows else "not measured"
         if len(keys) > 1:
             out[f"{name}_ms_by_kernel"] = by_key
-    for name, key in (ranges or {}).items():
-        ms = sum((e.device_time_total or 0) / 1e3 for e in prof.key_averages()
-                 if e.key == key and e.device_type.name == "CPU")
-        out[f"{name}_ms"] = ms
-        out[f"{name}_share_of_busy"] = ms / busy_ms if rows else "not measured"
     out["top_kernels"] = [{"ms": ms, "count": n, "name": name[:90]}
                           for ms, n, name in rows[:8]]
     log(f"[profile] {json.dumps(out)}  [{card}]")
@@ -736,7 +838,7 @@ def main() -> None:
         t0 = time.perf_counter()
         return build.build(source), time.perf_counter() - t0
 
-    sources = (fa.SOURCE, lk.SOURCE, qk.SOURCE, rk.SOURCE)
+    sources = (fa.SOURCE, lk.SOURCE, qk.SOURCE, qk.ROWS_SOURCE, rk.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         built = list(pool.map(timed_build, sources))
@@ -747,6 +849,17 @@ def main() -> None:
         for line in dict.fromkeys(l.strip() for l in lines
                                   if "registers" in l or "spill" in l):
             log(f"[build] {source.name}: {line}")
+    # every instantiation of the int8 route's kernels, by name: none spills
+    for source, (lib, _) in zip(sources, built):
+        if source not in (qk.SOURCE, qk.ROWS_SOURCE):
+            continue
+        report = ptxas_report(lib.with_suffix(".log").read_text())
+        for name, regs, stores, loads in report:
+            log(f"[build] {source.name}: {name}: {regs} registers, {stores} "
+                f"bytes spill stores, {loads} bytes spill loads")
+        if not report or any(st or ld for _, _, st, ld in report):
+            raise AssertionError(f"{source.name}: ptxas reports spills (or no "
+                                 f"entry function): {report}")
 
     # ------------------------------------------ 2. kernel vs plain version
     for shape, causal, window in GRID:
@@ -833,26 +946,43 @@ def main() -> None:
     del x, w, a, b, mixed, none
 
     # int8 products: bit for bit on the JAX grid, with all-127 operands at
-    # K = 16384 (127^2 * K in every element, near the top of int32), and at
-    # the full-width path's shapes (2 requests with CFG: 4 rows, 16384 image
-    # and 1332 text tokens; text encoder 333 or 666 rows)
+    # K = 16384 (127^2 * K in every element, near the top of int32) split
+    # along K and not, on every route, and at the full-width path's shapes
+    # (2 requests with CFG: 4 rows, 16384 image and 1332 text tokens; text
+    # encoder 333 or 666 rows)
     quant_checked = set()
     for shape in QUANT_GRID:
         check_quant(torch, qk, qref, shape)
         quant_checked.add(shape)
         log(f"[kernel] quant_matmul grid {shape}: bit-identical")
-    check_quant(torch, qk, qref, (4, 16384, 8), fill=127)
-    log("[kernel] quant_matmul all-127 (4, 16384, 8): bit-identical, "
-        f"{127 * 127 * 16384} in every element")
+    for shape in ((4, 16384, 8), (4096, 16384, 1152)):
+        check_quant(torch, qk, qref, shape, fill=127)
+        log(f"[kernel] quant_matmul all-127 {shape} "
+            f"({quant_route(torch, qk, shape)}): bit-identical, "
+            f"{127 * 127 * 16384} in every element")
+    for shape in QUANT_ROUTES:
+        check_quant(torch, qk, qref, shape)
+        quant_checked.add(shape)
+        log(f"[kernel] quant_matmul {shape} ({quant_route(torch, qk, shape)}): "
+            f"bit-identical")
     d, ff, td = 1536, 6144, 4096
-    for shape in ([(4, d, 6 * d)]
+    quant_full = ([(4, d, 6 * d)]
                   + [(m, k, n) for m in (16384, 1332)
                      for k, n in ((d, d), (d, ff), (ff, d))]
                   + [(m, k, n) for m in (333, 666)
-                     for k, n in ((td, td), (td, 4 * td), (4 * td, td))]):
+                     for k, n in ((td, td), (td, 4 * td), (4 * td, td))])
+    for shape in quant_full:
         check_quant(torch, qk, qref, shape)
         quant_checked.add(shape)
-        log(f"[kernel] quant_matmul path {shape}: bit-identical")
+        log(f"[kernel] quant_matmul path {shape} "
+            f"({quant_route(torch, qk, shape)}): bit-identical")
+    # the row quantization at every (M, K) the path quantizes, then the
+    # edges; bit for bit
+    rows_checked = set()
+    for shape in sorted({(m, k) for m, k, _ in quant_full} | set(ROWS_EDGE)):
+        check_rows(torch, qk, qref, shape)
+        rows_checked.add(shape)
+        log(f"[kernel] quantize_rows {shape}: bit-identical")
     rglru_err = 0.0
     for shape in RGLRU_GRID + RGLRU_WIDE:
         err = check_rglru(torch, rk, rref, shape)
@@ -947,7 +1077,8 @@ def main() -> None:
     torch.cuda.synchronize()
     fa.flash_attention.launches = 0
     lk.lora_matmul.launches = lk.lora_matmul_grouped.launches = 0
-    qk.quant_matmul.launches = rk.rglru_scan.launches = 0
+    qk.quant_matmul.launches = qk.quantize_rows.launches = 0
+    rk.rglru_scan.launches = 0
     t0 = time.perf_counter()
     reqs = [system.submit("sd3:basic", inputs=dict(inp), arrival=0.0,
                           steps=STEPS) for inp in REQUESTS]
@@ -956,7 +1087,8 @@ def main() -> None:
     wall_s = time.perf_counter() - t0
     launches = fa.flash_attention.launches
     lora_on_basic = lk.lora_matmul.launches + lk.lora_matmul_grouped.launches
-    others_on_basic = qk.quant_matmul.launches + rk.rglru_scan.launches
+    others_on_basic = (qk.quant_matmul.launches + qk.quantize_rows.launches
+                       + rk.rglru_scan.launches)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     expected, path_shapes = expected_flash(system.coordinator.dispatch_log, cfg)
     fp32_images = []
@@ -974,8 +1106,9 @@ def main() -> None:
                              f"the main path, expected >= {expected}")
     if lora_on_basic or others_on_basic:
         raise AssertionError(f"the fp32 basic path launched a LoRA kernel "
-                             f"{lora_on_basic} times, quant_matmul or "
-                             f"rglru_scan {others_on_basic} times")
+                             f"{lora_on_basic} times, quant_matmul, "
+                             f"quantize_rows or rglru_scan {others_on_basic} "
+                             f"times")
     log(f"[path] 2 full-width sd3:basic requests, {STEPS} steps, wall "
         f"{wall_s:.2f} s (weights drawn on the card included), peak memory "
         f"{peak_gib:.2f} GiB, flash_attention launches {launches} "
@@ -1026,6 +1159,7 @@ def main() -> None:
 
     # -------------------------- 4q. full-width basic path under int8
     prev_mode = set_quant_mode("int8")
+    real_rows = qops._quantize_rows
     try:
         ms = ModelSet(family)
         system = ServingSystem(n_executors=1,
@@ -1035,12 +1169,14 @@ def main() -> None:
         torch.cuda.synchronize()
         fa.flash_attention.launches = 0
         lk.lora_matmul.launches = lk.lora_matmul_grouped.launches = 0
-        qk.quant_matmul.launches = rk.rglru_scan.launches = 0
+        qk.quant_matmul.launches = qk.quantize_rows.launches = 0
+        rk.rglru_scan.launches = 0
         t0 = time.perf_counter()
         reqs = serve(system, [("sd3:basic", inp) for inp in REQUESTS], STEPS)
         torch.cuda.synchronize()
         q_wall_s = time.perf_counter() - t0
         q_launches = qk.quant_matmul.launches
+        q_rows = qk.quantize_rows.launches
         q_flash = fa.flash_attention.launches
         q_others = (lk.lora_matmul.launches + lk.lora_matmul_grouped.launches
                     + rk.rglru_scan.launches)
@@ -1056,6 +1192,10 @@ def main() -> None:
                 f"expected {q_expected} (1344 per {STEPS}-step segment "
                 f"dispatch + 12 per text batch); dispatches "
                 f"{[(d.model_id, len(d.nodes), d.segment_steps) for d in q_log]}")
+        if q_rows != q_launches:
+            raise AssertionError(f"quantize_rows launched {q_rows} times on "
+                                 f"the int8 path, quant_matmul {q_launches}: "
+                                 f"one quantization per product expected")
         if q_flash != q_expected_flash or q_others:
             raise AssertionError(f"int8 path: flash_attention {q_flash} "
                                  f"(expected {q_expected_flash}), other "
@@ -1078,11 +1218,12 @@ def main() -> None:
             f"card included), peak memory {q_peak_gib:.2f} GiB, quant_matmul "
             f"launches {q_launches} (expected {q_expected}: "
             f"{[(d.model_id, len(d.nodes), d.segment_steps) for d in q_log]}), "
-            f"flash_attention launches {q_flash} (expected "
+            f"quantize_rows launches {q_rows}, flash_attention launches {q_flash} (expected "
             f"{q_expected_flash})  [{card}]")
-        # the same two requests, with the script putting the plain version in
-        # the kernel's place (the package has no such switch)
+        # the same two requests, with the script putting both plain versions
+        # in the kernels' places (the package has no such switch)
         qops.quant_matmul = qref.quant_matmul_ref
+        qops._quantize_rows = qref.quantize_rows_ref
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1092,14 +1233,15 @@ def main() -> None:
             plain_wall_s = time.perf_counter() - t0
         finally:
             qops.quant_matmul = qk.quant_matmul
+            qops._quantize_rows = real_rows
         for req, img in zip(plain_reqs, q_images):
             other = image_of(system, req)
             e = rel(img, other)
-            if not e <= 1e-6:
-                raise AssertionError(f"int8 path, kernel vs plain route: rel "
-                                     f"err {e}")
-            log(f"[path-int8] kernel vs plain route image rel err {e:.2e} <= "
-                f"1e-6, bit-identical: {bool(torch.equal(img, other))}")
+            if not torch.equal(img, other):
+                raise AssertionError(f"int8 path, kernels vs plain route: not "
+                                     f"bit-identical, rel err {e}")
+            log(f"[path-int8] kernels vs plain route image rel err {e:.2e}, "
+                f"bit-identical: True")
         log(f"[path-int8] the plain route served the same 2 requests in "
             f"{plain_wall_s:.2f} s (weights loaded)  [{card}]")
 
@@ -1109,29 +1251,27 @@ def main() -> None:
             if shape not in quant_checked:
                 q_err = max(q_err, check_quant(torch, qk, qref, shape))
                 log(f"[kernel] quant_matmul served {shape}: bit-identical")
-            q_times.append(time_quant(torch, qk, qref, qops, shape))
+            q_times.append(time_quant(torch, qk, qref, shape))
             log(f"[time] {json.dumps(q_times[-1])}  [{card}]")
+        rows_times = []
+        for shape in sorted({(m, k) for m, k, _ in q_shapes},
+                            key=lambda s: -s[0] * s[1]):
+            if shape not in rows_checked:
+                check_rows(torch, qk, qref, shape)
+                log(f"[kernel] quantize_rows served {shape}: bit-identical")
+            rows_times.append(time_rows(torch, qk, qref, shape))
+            log(f"[time] {json.dumps(rows_times[-1])}  [{card}]")
         r_times = []
         for shape in RGLRU_WIDE:
             r_times.append(time_rglru(torch, rk, rref, shape))
             log(f"[time] {json.dumps(r_times[-1])}  [{card}]")
 
         # ---------------------------- 6q. where the time goes, int8
-        real_rows = qops._quantize_rows
-
-        def named_rows(x2):
-            with torch.profiler.record_function("quantize_rows"):
-                return real_rows(x2)
-
-        qops._quantize_rows = named_rows
-        try:
-            profile_path(torch, system, [("sd3:basic", inp) for inp in REQUESTS],
-                         card, "sd3:basic int8",
-                         {"quant_matmul": ("quant_matmul_kernel",),
-                          "flash_attention": FLASH_KERNELS},
-                         ranges={"activation_quantization": "quantize_rows"})
-        finally:
-            qops._quantize_rows = real_rows
+        profile_path(torch, system, [("sd3:basic", inp) for inp in REQUESTS],
+                     card, "sd3:basic int8",
+                     {"quant_matmul": QUANT_KERNELS,
+                      "quantize_rows": ("quantize_rows_kernel",),
+                      "flash_attention": FLASH_KERNELS})
     finally:
         set_quant_mode(prev_mode)
     if quant_mode() != prev_mode:
@@ -1147,7 +1287,8 @@ def main() -> None:
     torch.cuda.synchronize()
     fa.flash_attention.launches = 0
     lk.lora_matmul.launches = lk.lora_matmul_grouped.launches = 0
-    qk.quant_matmul.launches = rk.rglru_scan.launches = 0
+    qk.quant_matmul.launches = qk.quantize_rows.launches = 0
+    rk.rglru_scan.launches = 0
     t0 = time.perf_counter()
     reqs = serve(system, MIXED, STEPS)
     torch.cuda.synchronize()
@@ -1169,10 +1310,12 @@ def main() -> None:
     if ml_grouped < want_grouped:
         raise AssertionError(f"lora_matmul_grouped launched {ml_grouped} times "
                              f"on the LoRA path, expected >= {want_grouped}")
-    if ml_single or qk.quant_matmul.launches or rk.rglru_scan.launches:
+    if (ml_single or qk.quant_matmul.launches or qk.quantize_rows.launches
+            or rk.rglru_scan.launches):
         raise AssertionError(f"on the fp32 LoRA path lora_matmul launched "
                              f"{ml_single} times (it has no serving path), "
                              f"quant_matmul {qk.quant_matmul.launches}, "
+                             f"quantize_rows {qk.quantize_rows.launches}, "
                              f"rglru_scan {rk.rglru_scan.launches}")
     ml_expected_flash, ml_flash_shapes = expected_flash(log_ml, cfg)
     if ml_flash < ml_expected_flash:
@@ -1312,7 +1455,8 @@ def main() -> None:
                 "max_abs_err": err, "ms": lead["ms"],
                 "plain_ms": lead["plain_ms"], "bound_ms": lead["bound_ms"],
                 "bound_by": lead["bound_by"], "library_ms": lead["library_ms"],
-                **({"library": lead["library"]} if "library" in lead else {}),
+                **({key: lead[key] for key in ("library", "device_ms")
+                    if key in lead}),
                 "shape": lead["shape"], "other_shapes": others}
 
     lora_src = "src/repro_torch/kernels/lora_matmul/csrc/lora_matmul.cu"
@@ -1334,6 +1478,11 @@ def main() -> None:
               "src/repro_torch/kernels/quant_matmul/csrc/quant_matmul.cu",
               "src/repro/kernels/quant_matmul/kernel.py:68", q_launches,
               q_err, q_times[0], q_times[1:]),
+        # not a Pallas kernel: the plain jnp quantization before it
+        entry("quantize_rows",
+              "src/repro_torch/kernels/quant_matmul/csrc/quantize_rows.cu",
+              "src/repro/kernels/quant_matmul/ops.py:112", q_rows, 0.0,
+              rows_times[0], rows_times[1:]),
         entry("rglru_scan",
               "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
               "src/repro/kernels/rglru_scan/kernel.py:61", 0, rglru_err,

@@ -1,4 +1,6 @@
-"""Quantized (w8a8 int8 / fp8 weight-only) matmul: the Hopper int8 kernel, its plain version and the quantize helpers."""
+"""Quantized (w8a8 int8 / fp8 weight-only) matmul: the Hopper int8 kernels
+(row quantization and product), their plain versions and the quantize
+helpers."""
 
 from repro_torch.kernels.quant_matmul.ops import (
     dequantize_weight,

@@ -6,17 +6,18 @@ A quantized projection weight is a two-leaf dict, as in the JAX package::
      "qs": float32 tensor             [..., 1, N]}   # per output channel
 
 * **int8** is w8a8: symmetric per-channel weight scales, dynamic per-row
-  activation scales, and the int8 product with int32 accumulation
-  (:func:`~.kernel.quant_matmul`: the CUDA kernel for a CUDA tensor, its
-  plain version for a CPU tensor).
+  activation scales (:func:`~.kernel.quantize_rows`), and the int8 product
+  with int32 accumulation (:func:`~.kernel.quant_matmul`); each the CUDA
+  kernel for a CUDA tensor, its plain version for a CPU tensor.
 * **fp8** is weight-only storage: the product upcasts the weight to
   float32 and folds the channel scale into the output, a plain product
   outside any kernel, as in the JAX package.
 
-The activation quantization is plain torch, as it is plain ``jnp`` in the
-JAX package.  Every helper gives the JAX package's bits for the same
-input (``torch.round`` and ``jnp.round`` both round half to even), the
-quantized projection those of its jitted ``quant_apply``.
+The JAX package quantizes activations in plain ``jnp``; the port's
+kernel repeats the plain version's float32 operations.  Every helper
+gives the JAX package's bits for the same input (``torch.round`` and
+``jnp.round`` both round half to even), the quantized projection those
+of its jitted ``quant_apply``.
 
 The JAX package's switches between its kernel and its oracle
 (``REPRO_QUANT_KERNEL``, ``set_quant_kernel``, ``quant_kernel_enabled``,
@@ -31,14 +32,10 @@ from typing import Any, Tuple
 
 import torch
 
-from repro_torch.kernels.quant_matmul.kernel import quant_matmul
+from repro_torch.kernels.quant_matmul.kernel import quant_matmul, quantize_rows
 
 _INT8_MAX = 127.0
 _FP8_MAX = 448.0          # float8_e4m3fn largest finite
-# 1/127 rounded to float32.  The JAX package quantizes activations inside
-# jit, where XLA turns the division by the constant 127 into a product
-# with this reciprocal; the port multiplies too, to give the same scales.
-_INV_INT8_MAX = 0.007874015718698502
 
 
 def is_quantized(w: Any) -> bool:
@@ -76,11 +73,9 @@ def dequantize_weight(q: Any) -> Any:
 
 def _quantize_rows(x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-row int8 activation quantization: ``[M, K]`` float32 ->
-    (int8 values, ``[M, 1]`` float32 scales)."""
-    amax = x2.abs().amax(dim=-1, keepdim=True)                # [M, 1]
-    xs = torch.where(amax > 0, amax * _INV_INT8_MAX, 1.0)
-    xq = torch.clamp(torch.round(x2 / xs), -_INT8_MAX, _INT8_MAX)
-    return xq.to(torch.int8), xs.float()
+    (int8 values, ``[M, 1]`` float32 scales); the CUDA kernel for a CUDA
+    tensor, its plain version (``ref.quantize_rows_ref``) for a CPU one."""
+    return quantize_rows(x2.contiguous())
 
 
 def quant_apply(x: torch.Tensor, qw: torch.Tensor,

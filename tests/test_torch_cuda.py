@@ -260,7 +260,12 @@ def test_lora_kernels_refuse_what_they_do_not_take(card):
 # the same order in the kernel and its plain version.
 
 QUANT_GRID = [(1, 8, 8), (5, 24, 40), (33, 128, 96), (128, 100, 200),
-              (4, 1536, 9216), (1332, 1536, 1536), (300, 6144, 1540)]
+              (4, 1536, 9216), (1332, 1536, 1536), (300, 6144, 1540),
+              # each route (128-, 64- and 16-row tiles) with ragged M, split-K
+              # at M 1, 4 and 64, byte loads (K or N not a multiple of 16)
+              (1, 1536, 9216), (64, 4096, 1536), (333, 4096, 4096),
+              (333, 4096, 16384), (1332, 1536, 6144), (2000, 1536, 6144),
+              (333, 16384, 4096), (37, 200, 130), (700, 999, 4100)]
 
 
 def _quant_inputs(card, m, k, n, seed=2):
@@ -290,6 +295,21 @@ def test_quant_matmul_matches_plain_version(card, m, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4, 1536, 9216), (64, 4096, 1536),
+                                   (333, 16384, 4096), (3, 1000, 72)])
+def test_quant_matmul_split_k_matches_plain_version(card, m, k, n):
+    """Shapes the plan splits along K (the last with byte loads): the int32
+    partial sums add exactly, so the bits do not move."""
+    from repro_torch.kernels.quant_matmul import kernel as qk
+    from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert qk.plan(m, k, n, sms)[1] > 1
+    args = _quant_inputs(card, m, k, n, seed=4)
+    assert torch.equal(qk.quant_matmul(*args), quant_matmul_ref(*args))
+
+
+@pytest.mark.cuda
 def test_quant_matmul_accumulates_in_int32(card):
     from repro_torch.kernels.quant_matmul.kernel import quant_matmul
 
@@ -314,6 +334,63 @@ def test_quant_matmul_refuses_what_it_does_not_take(card):
         quant_matmul(xq, wq.t(), xs, ws.reshape(1, 16))
     with pytest.raises(ValueError, match="shapes"):
         quant_matmul(xq, wq, xs, ws[:, :8].contiguous())
+
+
+# ------------------------------------------------- activation quantization
+# Bit for bit: the kernel repeats the plain version's float32 operations.
+
+def _rows_probe(card, m, k, seed=6):
+    """Normal draws, an all-zero row, and a row of exact .5 quotients (row
+    maximum 127, so the scale is 1)."""
+    r = np.random.default_rng(seed)
+    x = r.standard_normal((m, k)).astype(np.float32) * 3
+    x[0] = 0.0
+    if m > 1:
+        x[1] = r.integers(-127, 127, k).astype(np.float32) + 0.5
+        x[1, 0] = 127.0
+    return torch.from_numpy(x).to(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(4, 1536), (16384, 1536), (1332, 6144),
+                                 (333, 4096), (333, 16384), (1, 17),
+                                 (37, 1000), (9, 1001), (5, 3001), (3, 20000),
+                                 (2, 40000), (2, 40001)])
+def test_quantize_rows_matches_plain_version(card, m, k):
+    """The int8 path's shapes (32 to 512 threads a row), ragged K (K % 4 !=
+    0 takes element loads), and rows too long to hold in registers."""
+    from repro_torch.kernels.quant_matmul.kernel import quantize_rows
+    from repro_torch.kernels.quant_matmul.ref import quantize_rows_ref
+
+    x = _rows_probe(card, m, k)
+    before = quantize_rows.launches
+    xq, xs = quantize_rows(x)
+    torch.cuda.synchronize()
+    assert quantize_rows.launches == before + 1
+    want_q, want_s = quantize_rows_ref(x)
+    assert xq.dtype == torch.int8 and xs.shape == (m, 1)
+    assert torch.equal(xq, want_q) and torch.equal(xs, want_s)
+
+
+@pytest.mark.cuda
+def test_quantize_rows_nan_row_and_refusals(card):
+    """A row holding a NaN gets scale 1, as the plain version's NaN-keeping
+    maximum gives, and its finite entries the plain version's values; a
+    non-contiguous or non-float32 input raises."""
+    from repro_torch.kernels.quant_matmul.kernel import quantize_rows
+    from repro_torch.kernels.quant_matmul.ref import quantize_rows_ref
+
+    x = _rows_probe(card, 4, 1536)
+    x[2, 7] = float("nan")
+    xq, xs = quantize_rows(x)
+    want_q, want_s = quantize_rows_ref(x)
+    assert torch.equal(xs, want_s) and float(xs[2]) == 1.0
+    finite = torch.isfinite(x)
+    assert torch.equal(xq[finite], want_q[finite])
+    with pytest.raises(ValueError, match="contiguous"):
+        quantize_rows(x.t())
+    with pytest.raises(ValueError, match="float32"):
+        quantize_rows(x.double())
 
 
 # ------------------------------------------------------------ RG-LRU scan

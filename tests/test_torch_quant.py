@@ -57,8 +57,18 @@ from repro_torch.diffusion.ops import (
     VAEDecode,
 )
 from repro_torch.kernels.quant_matmul import ops as tq
-from repro_torch.kernels.quant_matmul.kernel import quant_matmul
-from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+from repro_torch.kernels.quant_matmul.kernel import (
+    BLOCK_K,
+    BLOCK_N,
+    ROUTE_ROWS,
+    plan,
+    quant_matmul,
+    quantize_rows,
+)
+from repro_torch.kernels.quant_matmul.ref import (
+    quant_matmul_ref,
+    quantize_rows_ref,
+)
 from repro_torch.nn import layers as tlayers
 from repro_torch.weights import from_numpy
 
@@ -137,20 +147,52 @@ def test_quantize_weight_matches_jax(mode, shape, dtype):
     assert tq.quantize_weight(got, mode) is got
 
 
+def _rows_probe(m, k, seed):
+    """``[m, k]`` float32 activations with the rows that pin the bits: an
+    all-zero row (scale 1); rows whose row maximum is 127 * 2**e, so the
+    scale is exactly 2**e and every quotient lands on a .5 (round half to
+    even decides it); a row whose small negative entries round to -0.0;
+    the rest normal draws of both signs."""
+    r = np.random.default_rng(seed)
+    x = r.standard_normal((m, k)).astype(np.float32) * 3
+    x[0] = 0.0
+    for row, e in ((1, 0), (2, -3), (3, 4)):
+        if row < m:
+            halves = r.integers(-127, 127, k).astype(np.float32) + 0.5
+            x[row] = halves * np.float32(2.0 ** e)
+            x[row, r.integers(0, k)] = np.float32(127.0 * 2.0 ** e)
+    if m > 4:
+        x[4] = -0.3
+        x[4, 0] = 127.0
+    return x
+
+
 def test_quantize_rows_matches_jax():
     """The JAX package quantizes activations inside its jitted
     ``_quant_apply``, where XLA computes the row scale ``amax / 127`` as a
-    product with the float32 reciprocal: compared with that jitted form."""
-    r = np.random.default_rng(1)
-    for shape in ((333, 1536), (128, 100), (4, 9216)):
-        x = r.standard_normal(shape).astype(np.float32) * 3
-        x[0] = 0.0                                   # an all-zero row: scale 1
+    product with the float32 reciprocal: compared with that jitted form,
+    at K from 17 to 16384.  The plain version, the wrapper and
+    ``ops._quantize_rows`` on CPU tensors all give its bits, and the
+    wrapper counts no launch."""
+    for m, k in ((333, 1536), (128, 100), (4, 9216), (7, 17), (16, 6144),
+                 (5, 16384)):
+        x = _rows_probe(m, k, seed=m * 7 + k)
         want_q, want_s = jax.jit(jq._quantize_rows)(jnp.asarray(x))
-        got_q, got_s = tq._quantize_rows(torch.from_numpy(x))
-        assert got_q.dtype == torch.int8 and got_s.shape == (shape[0], 1)
-        same_bits(got_q, want_q)
-        same_bits(got_s, want_s)
+        before = quantize_rows.launches
+        for fn in (quantize_rows_ref, quantize_rows, tq._quantize_rows):
+            got_q, got_s = fn(torch.from_numpy(x))
+            assert got_q.dtype == torch.int8 and got_q.shape == (m, k)
+            assert got_s.dtype == torch.float32 and got_s.shape == (m, 1)
+            same_bits(got_q, want_q)
+            same_bits(got_s, want_s)
+        assert quantize_rows.launches == before
         assert float(got_s[0]) == 1.0
+        if m > 3:   # the scales 2**e are exact, so every quotient is a .5
+            assert got_s[1:4, 0].tolist() == [1.0, 2.0 ** -3, 2.0 ** 4]
+            ties = torch.from_numpy(x[1:4]) / got_s[1:4]
+            assert int((ties.abs() % 1 == 0.5).sum()) == 3 * (k - 1)
+        if m > 4:   # -0.3 rounds to -0.0, stored as 0
+            assert bool((got_q[4, 1:] == 0).all())
 
 
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
@@ -184,6 +226,32 @@ def test_quant_matmul_ref_matches_jax(m, k, n):
     before = quant_matmul.launches
     same_bits(quant_matmul(*map(torch.from_numpy, (xq, wq, xs, ws))), want)
     assert quant_matmul.launches == before
+
+
+@pytest.mark.parametrize("m,k,n,route,splits", [
+    # the full-width int8 path on an H100's 132 SMs: image stream, text
+    # stream, text encoder (one and two prompts), the per-layer ada product
+    (16384, 1536, 1536, 0, 1), (16384, 1536, 6144, 0, 1),
+    (16384, 6144, 1536, 0, 1), (1332, 1536, 6144, 0, 1),
+    (1332, 1536, 1536, 1, 1), (1332, 6144, 1536, 1, 1),
+    (333, 4096, 4096, 1, 1), (333, 4096, 16384, 0, 1),
+    (333, 16384, 4096, 1, 2), (666, 4096, 4096, 1, 1),
+    (4, 1536, 9216, 2, 4),
+    # the split is capped by the partial sums' bytes, and by a short K
+    (64, 4096, 1536, 2, 4), (100, 1536, 1536, 1, 1), (3, 1000, 72, 2, 4),
+    (1, 8, 8, 2, 1)])
+def test_quant_matmul_plan(m, k, n, route, splits):
+    """The CUDA product's tiles and split: 128-row tiles where they give two
+    blocks an SM, 16-row tiles streaming wq for M <= 64, 64-row tiles
+    between; a grid under two blocks an SM splits K, every split non-empty,
+    while the int32 partial sums stay within half the operands' bytes."""
+    assert plan(m, k, n, 132) == (route, splits)
+    blocks = -(-m // ROUTE_ROWS[route]) * -(-n // BLOCK_N)
+    k_split = -(-(-(-k // BLOCK_K)) // splits) * BLOCK_K
+    assert (splits - 1) * k_split < k <= splits * k_split
+    if splits > 1:
+        assert blocks < 2 * 132
+        assert 8 * splits * m * n <= (m * k + k * n) / 2
 
 
 @pytest.mark.parametrize("k", [256, 16384])
