@@ -126,12 +126,44 @@ Phases (any failed check raises, and the script exits non-zero):
    profiler; both kernels' device time and shares of busy time
    (``QUANT_KERNELS`` and ``quantize_rows_kernel``).
 
+4n. The ControlNet path: Table 2's S1 (``table2_setting("s1")``: sd3:basic,
+   sd3:cn1 and sd3:cn2 on one ``ModelSet``) at full width on one card, one
+   sd3:cn1 and one sd3:cn2 request seeded as phase 4's two, each with its
+   own (1, 1024, 1024, 3) reference image in [-1, 1] from a fixed seed, 4
+   steps.  The ControlNets get a nonzero ``cond_embed`` through ``weights``
+   (the JAX package's is all zeros, with which the reference image could
+   not move the image; test weights only).  Counts set to 0 just before and
+   read just after: flash attention exactly 24 launches per backbone batch
+   step, 12 per ControlNet batch step and 2 per text batch; no other
+   kernel.  Each request's steps ran fused with its ControlNets
+   (``segment:backbone:sd3+controlnet1:sd3[+controlnet2:sd3]``).  Images as
+   in phase 4, the port's ``check_invariants`` finds nothing, and the same
+   requests through the plain attention route give images within
+   ``KERNEL_VS_PLAIN_REL``.  Two controls must move the sd3:cn1 image by
+   more than ``CONTROL_FACTOR`` times that error: another reference image
+   (the conditioning is live) and the basic workflow with the same seed and
+   prompt (the residuals are live).
+5n. Flash attention at each shape the ControlNet path gave it that phases 5
+   and 5c did not cover (the branch's rows: (24, 4429, 4429, 64)), held
+   against the plain version (f32 atol 2e-5) and timed as in phase 5.
+4nq. The sd3:cn1 request under ``set_quant_mode("int8")`` (restored
+   afterwards) on a fresh system from the same weights: ``quant_matmul``
+   and ``quantize_rows`` exactly 2 streams x 7 x (24 backbone + 12
+   ControlNet layers) per step plus 12 per text batch, flash attention as
+   in phase 4n; the image bit-identical to the same request served with
+   both plain versions in the kernels' places.  Every (M, K, N) and (M, K)
+   that phase 4q did not give is checked bit for bit and timed as in 5q.
+6n. Where the time goes on the ControlNet path: its two fp32 requests again
+   under the profiler; flash attention, cuDNN's convolutions and cuBLAS's
+   f32 GEMMs by device time and share of busy time, and the idle share.
+
 The phases run in the order 1, 2, 3, 4, 5, 6, 4q, 5q, 6q, 4b, 4c, 5b, 6b,
-5c.  Before the last two lines, one JSON ``kernels`` line lists every
-kernel, ``quantize_rows`` (which replaces plain code, not a Pallas kernel)
-among them: its ``launches`` are the count from its own path's run (the
-single-adapter LoRA kernel and ``rglru_scan`` have no serving path: 0), and
-each leads with the largest shape its
+5c, 4n, 5n, 4nq, 6n.  Before the last two lines, one JSON ``kernels`` line
+lists every kernel, ``quantize_rows`` (which replaces plain code, not a
+Pallas kernel) among them: its ``launches`` are the count from its own
+path's run (the single-adapter LoRA kernel and ``rglru_scan`` have no
+serving path: 0; ``launches_by_path`` gives each path's count where a
+kernel has several), and each leads with the largest shape its
 path launched, the others under ``other_shapes``.  The line before the last
 is the card's name and power limit as nvidia-smi prints them; the last line
 is the JSON result.  Without a CUDA device, or without the repository beside
@@ -169,6 +201,11 @@ LORA_KERNELS = ("lora_xa_kernel", "lora_matmul_kernel")
 # every CUDA kernel the quant_matmul wrapper launches: the GEMM and, for a
 # product split along K, the kernel that adds the int32 partial sums
 QUANT_KERNELS = ("quant_matmul_kernel", "quant_splitk_epilogue_kernel")
+# substrings of the library kernels a profile sums by kind: cuDNN's
+# convolutions (some named "..._implicit_gemm", so they are matched first)
+# and cuBLAS's f32 GEMMs
+CONV_KERNELS = ("conv", "fprop", "winograd", "cudnn")
+GEMM_KERNELS = ("gemm",)
 # the full-width fp32 image served through the kernel against the same
 # request served through the plain attention route, relative
 KERNEL_VS_PLAIN_REL = 1e-3
@@ -195,6 +232,13 @@ MIXED = [("sd3:lora:tenantA", {"seed": 42, "prompt": "a watercolor fox in a snow
          ("sd3:lora:tenantB", {"seed": 7, "prompt": "a lighthouse on a cliff at dusk, oil paint"}),
          ("sd3:basic", {"seed": 11, "prompt": "a red tram crossing a bridge in the rain"})]
 TOY_MIXED = [("sd3:lora:tenantA", 3), ("sd3:lora:tenantB", 3), ("sd3:basic", 3)]
+# the ControlNet path: one request of each ControlNet workflow, seeded as
+# REQUESTS, each with its own reference image (seeded by REF_SEEDS)
+CN_NAMES = ("sd3:cn1", "sd3:cn2")
+REF_SEEDS = (101, 202)
+# a control must move the image by more than this many times the larger
+# kernel-vs-plain error of the ControlNet requests
+CONTROL_FACTOR = 10
 TARGETS = 4                    # q, k, v, o of the image stream
 # tenant A in the mixed batch against its folded solo run, relative: above
 # the fold's bf16 rounding (3.8e-3 on an H100), below what a dropped or
@@ -623,21 +667,32 @@ def time_quant(torch, qk, qref, shape, reps=10) -> dict:
 
 def quant_path(dispatch_log, cfg) -> tuple:
     """int8 products the served dispatches must have made, and their (M, K,
-    N): 7 per stream and layer of each backbone forward (ada on the B rows,
-    q/k/v/o, w1 and w2 on every token row of the stream), 6 per layer of
-    each text-encoder batch (2 layers)."""
+    N): 7 per stream and layer of each backbone and ControlNet forward (ada
+    on the rows, q/k/v/o, w1 and w2 on every token row of the stream; the
+    backbone on the CFG-doubled rows, a ControlNet on the latent rows, and
+    its zero_proj and embeddings unquantized), 6 per layer of each
+    text-encoder batch (2 layers)."""
     expected, shapes = 0, set()
     d, ff, td = cfg.d_model, cfg.d_ff, cfg.text_dim
+
+    def forward(rows):
+        shapes.add((rows, d, 6 * d))
+        for m in (rows * cfg.image_tokens, rows * cfg.text_tokens):
+            shapes.update({(m, d, d), (m, d, ff), (m, ff, d)})
+
     for disp in dispatch_log:
         n = len(disp.nodes)
         if disp.model_id.startswith(("segment:", "backbone:")):
             fwd = (disp.segment_steps if disp.model_id.startswith("segment:")
                    else 1)
-            expected += fwd * cfg.n_layers * 2 * 7
-            rows = 2 * n                                # one-pass CFG
-            shapes.add((rows, d, 6 * d))
-            for m in (rows * cfg.image_tokens, rows * cfg.text_tokens):
-                shapes |= {(m, d, d), (m, d, ff), (m, ff, d)}
+            cns = n_controlnets(disp.model_id)
+            expected += fwd * (cfg.n_layers + cns * cn_layers(cfg)) * 2 * 7
+            forward(2 * n)                              # one-pass CFG
+            if cns:
+                forward(n)
+        elif disp.model_id.startswith("controlnet"):
+            expected += cn_layers(cfg) * 2 * 7
+            forward(n)
         elif disp.model_id.startswith("text_encoder:"):
             expected += 2 * 6
             m = n * cfg.text_tokens
@@ -678,7 +733,7 @@ def profile_path(torch, system, subs, card, label, kernels) -> dict:
     """Serve ``subs`` again on the warm system under the profiler; device
     time by kernel, the named kernels' time and shares and the idle share
     of the window.  ``kernels`` maps a name to the substrings of the CUDA
-    kernel names it sums."""
+    kernel names it sums; a kernel counts for the first name it matches."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -703,8 +758,12 @@ def profile_path(torch, system, subs, card, label, kernels) -> dict:
            "wall_ms": wall_ms,
            "device_busy_ms": busy_ms if rows else "not measured",
            "idle_share": 1 - busy_ms / wall_ms if rows else "not measured"}
+    # each kernel counts once: for the first (name, substring) it matches
+    owner = {r[2]: next(((name, key) for name, keys in kernels.items()
+                         for key in keys if key in r[2]), None) for r in rows}
     for name, keys in kernels.items():
-        by_key = {key: sum(r[0] for r in rows if key in r[2]) for key in keys}
+        by_key = {key: sum(r[0] for r in rows if owner[r[2]] == (name, key))
+                  for key in keys}
         ms = sum(by_key.values())
         out[f"{name}_ms"] = ms if rows else "not measured"
         out[f"{name}_share_of_busy"] = ms / busy_ms if rows else "not measured"
@@ -724,6 +783,46 @@ def image_of(system, req):
 def rel(a, b) -> float:
     a, b = a.double().cpu(), b.double().cpu()
     return float((a - b).norm() / b.norm())
+
+
+def controlnet_weights(family) -> dict:
+    """Both ControlNets' trees, drawn on the card from their model ids'
+    seeds (in the "off" quant mode: unquantized), each with a nonzero
+    ``cond_embed`` (normal x 1/sqrt(fan-in), from a fixed seed).  The JAX
+    package's ``cond_embed`` is all zeros, with which the reference image
+    could not change the served image.  Test weights only."""
+    import torch
+    from repro_torch.diffusion import ControlNet
+
+    out = {}
+    for variant in (1, 2):
+        params = ControlNet(family, variant).load("cuda")["params"]
+        ce = params["cond_embed"]
+        gen = torch.Generator(device="cuda").manual_seed(1000 + variant)
+        draw = torch.randn(tuple(ce.shape), generator=gen, device="cuda")
+        out[variant] = {**params,
+                        "cond_embed": (draw / math.sqrt(ce.shape[0])).to(ce.dtype)}
+    return out
+
+
+def ref_image(torch, seed, size=1024):
+    """A (1, size, size, 3) float32 reference image in [-1, 1] on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.rand((1, size, size, 3), generator=gen, device="cuda") * 2 - 1
+
+
+def cn_system(family, cn_weights):
+    """Table 2's S1 (sd3:basic, sd3:cn1, sd3:cn2 sharing one ModelSet) at
+    the family's width on one card, the ControlNets on ``cn_weights``."""
+    from repro_torch.core import LocalBackend, ServingSystem
+    from repro_torch.diffusion import ModelSet, table2_setting
+
+    ms = ModelSet(family)
+    ms.cn1.weights, ms.cn2.weights = cn_weights[1], cn_weights[2]
+    system = ServingSystem(n_executors=1, backend=LocalBackend(device="cuda"))
+    for wf in table2_setting("s1", model_sets={"sd3": ms}).values():
+        system.register(wf)
+    return system
 
 
 def lora_system(ms, device, multilora=True):
@@ -778,16 +877,35 @@ def check_image(torch, img, card, what):
                              f"{img.device} out of spec")
 
 
+def cn_layers(cfg) -> int:
+    """Layers of a ControlNet branch (``init_controlnet``'s default)."""
+    return max(1, cfg.n_layers // 2)
+
+
+def n_controlnets(model_id) -> int:
+    """ControlNets fused into a segment: ``segment:<backbone>+<cn>+...``."""
+    return model_id.count("+controlnet")
+
+
 def expected_flash(dispatch_log, cfg) -> tuple:
     """Flash-attention launches the dispatches must have made, and the
-    shapes they gave the kernel."""
+    shapes they gave the kernel: per step, a layer's launch for each of the
+    backbone's (on the CFG-doubled rows) and each ControlNet's (on the
+    latent rows)."""
     expected, shapes = 0, set()
     for d in dispatch_log:
         n = len(d.nodes)
         if d.model_id.startswith("segment:"):
-            expected += d.segment_steps * cfg.n_layers
+            cns = n_controlnets(d.model_id)
+            expected += d.segment_steps * (cfg.n_layers + cns * cn_layers(cfg))
             shapes.add((2 * n * cfg.n_heads, cfg.tokens, cfg.tokens,
                         cfg.head_dim))
+            if cns:
+                shapes.add((n * cfg.n_heads, cfg.tokens, cfg.tokens,
+                            cfg.head_dim))
+        elif d.model_id.startswith("controlnet"):
+            expected += cn_layers(cfg)
+            shapes.add((n * cfg.n_heads, cfg.tokens, cfg.tokens, cfg.head_dim))
         elif d.model_id.startswith("backbone:"):
             expected += cfg.n_layers
             shapes.add((2 * n * cfg.n_heads, cfg.tokens, cfg.tokens,
@@ -822,6 +940,7 @@ def main() -> None:
     from repro_torch.kernels.rglru_scan import kernel as rk
     from repro_torch.kernels.rglru_scan import ref as rref
     from repro_torch.nn.layers import quant_mode, set_flash_attention, set_quant_mode
+    from repro_torch.sim import check_invariants
 
     t_start = time.perf_counter()
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1445,13 +1564,227 @@ def main() -> None:
                            "path": "mixed LoRA batch"})
         log_attention_time(ml_timings[-1], shape, card)
 
+    # ------------------------- 4n. full-width ControlNet path, fp32
+    cn_weights = controlnet_weights(family)
+    refs = [ref_image(torch, seed, 8 * cfg.latent_size) for seed in REF_SEEDS]
+    cn_subs = [(name, {**inp, "ref_image": img})
+               for name, inp, img in zip(CN_NAMES, REQUESTS, refs)]
+    system = cn_system(family, cn_weights)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    lk.lora_matmul.launches = lk.lora_matmul_grouped.launches = 0
+    qk.quant_matmul.launches = qk.quantize_rows.launches = 0
+    rk.rglru_scan.launches = 0
+    t0 = time.perf_counter()
+    reqs = serve(system, cn_subs, STEPS)
+    torch.cuda.synchronize()
+    cn_wall_s = time.perf_counter() - t0
+    cn_flash = fa.flash_attention.launches
+    cn_others = (lk.lora_matmul.launches + lk.lora_matmul_grouped.launches
+                 + qk.quant_matmul.launches + qk.quantize_rows.launches
+                 + rk.rglru_scan.launches)
+    cn_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    cn_log = system.coordinator.dispatch_log
+    cn_dispatches = [(d.model_id, len(d.nodes), d.segment_steps) for d in cn_log]
+    cn_expected_flash, cn_flash_shapes = expected_flash(cn_log, cfg)
+    # each request's steps ran fused with its ControlNets, in one chunk or
+    # several (the scheduler picks the chunk by its queue)
+    cn_steps = {}
+    for d in cn_log:
+        if d.model_id.startswith("segment:"):
+            cn_steps[d.model_id] = cn_steps.get(d.model_id, 0) + d.segment_steps
+    want_steps = {"segment:backbone:sd3+controlnet1:sd3": STEPS,
+                  "segment:backbone:sd3+controlnet1:sd3+controlnet2:sd3": STEPS}
+    if cn_steps != want_steps:
+        raise AssertionError(f"ControlNet path: segment steps {cn_steps}, "
+                             f"expected {want_steps}; {cn_dispatches}")
+    if cn_flash != cn_expected_flash or cn_others:
+        raise AssertionError(f"ControlNet path: flash_attention launched "
+                             f"{cn_flash} times, expected {cn_expected_flash} "
+                             f"({cn_dispatches}); other kernels {cn_others}")
+    cn_images = {}
+    for (name, _), req in zip(cn_subs, reqs):
+        img = image_of(system, req)
+        check_image(torch, img, card, name)
+        cn_images[name] = img
+        log(f"[path-cn] {name} request {req.rid} done: latency "
+            f"{req.latency:.3f} s on the coordinator's measured timeline; "
+            f"image {tuple(img.shape)} range [{float(img.min()):.3f}, "
+            f"{float(img.max()):.3f}]  [{card}]")
+    errs_cn = check_invariants(system.coordinator)
+    if errs_cn:
+        raise AssertionError(f"ControlNet path invariants: {errs_cn}")
+    log("[path-cn] check_invariants(coordinator): no violation")
+    log(f"[path-cn] sd3:cn1 + sd3:cn2 at full width, {STEPS} steps, wall "
+        f"{cn_wall_s:.2f} s (weights drawn on the card included), peak "
+        f"memory {cn_peak_gib:.2f} GiB, dispatches {cn_dispatches}, "
+        f"flash_attention launches {cn_flash} (expected {cn_expected_flash}: "
+        f"{cfg.n_layers} per backbone batch step, {cn_layers(cfg)} per "
+        f"ControlNet batch step, 2 per text batch)  [{card}]")
+    # the same requests through the plain attention route
+    prev_flash = set_flash_attention(False)
+    try:
+        before = fa.flash_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_reqs = serve(system, cn_subs, STEPS)
+        torch.cuda.synchronize()
+        cn_plain_s = time.perf_counter() - t0
+        if fa.flash_attention.launches != before:
+            raise AssertionError("the plain attention route launched the "
+                                 "flash-attention kernel")
+    finally:
+        set_flash_attention(prev_flash)
+    cn_plain_err = {}
+    for (name, _), req in zip(cn_subs, plain_reqs):
+        other = image_of(system, req)
+        e = rel(cn_images[name], other)
+        cn_plain_err[name] = e
+        if not e < KERNEL_VS_PLAIN_REL:
+            raise AssertionError(f"{name}: image through the kernel vs the "
+                                 f"plain attention route: rel err {e}")
+        log(f"[path-cn] {name}: image through the kernel vs through the plain "
+            f"attention route rel err {e:.3e} < {KERNEL_VS_PLAIN_REL}, "
+            f"max|diff| {float((cn_images[name] - other).abs().max()):.3e}")
+    log(f"[path-cn] the plain attention route served the same 2 requests in "
+        f"{cn_plain_s:.2f} s (weights loaded)  [{card}]")
+    # two controls: the conditioning reaches the image (another reference
+    # image), and the residuals do (the basic workflow, same seed and prompt)
+    gate = CONTROL_FACTOR * max(cn_plain_err.values())
+    alt = {**cn_subs[0][1],
+           "ref_image": ref_image(torch, REF_SEEDS[0] + 1, 8 * cfg.latent_size)}
+    for label, sub in (("another reference image", ("sd3:cn1", alt)),
+                       ("the basic workflow", ("sd3:basic", REQUESTS[0]))):
+        other = image_of(system, serve(system, [sub], STEPS)[0])
+        e = rel(cn_images["sd3:cn1"], other)
+        log(f"[path-cn] control, sd3:cn1 vs {label} (same seed and prompt): "
+            f"rel err {e:.3e}, max|diff| "
+            f"{float((cn_images['sd3:cn1'] - other).abs().max()):.3e}; must "
+            f"exceed {CONTROL_FACTOR} x the kernel-vs-plain error = {gate:.3e}")
+        if not e > gate:
+            raise AssertionError(f"control {label}: {e} <= {gate}")
+    del plain_reqs, other
+
+    # -------- 5n. flash attention at the ControlNet path's own shapes
+    cn_timings = []
+    for shape in sorted(cn_flash_shapes - set(shapes) - ml_flash_shapes,
+                        key=lambda s: -s[0] * s[1] * s[2] * s[3]):
+        err = check_attention(torch, fa, shape, False, None, f32, 2e-5)
+        errs.append(err)
+        log(f"[kernel] ControlNet path {shape} float32: max|err| {err:.2e} "
+            f"<= 2e-05")
+        cn_timings.append({**time_attention(torch, fa, shape, f32),
+                           "path": "ControlNet (sd3:cn1, sd3:cn2)"})
+        log_attention_time(cn_timings[-1], shape, card)
+    if not cn_timings:
+        raise AssertionError(f"the ControlNet path gave flash attention no new "
+                             f"shape: {sorted(cn_flash_shapes)}")
+
+    # -------------------------- 4nq. the cn1 request under int8
+    prev_mode = set_quant_mode("int8")
+    try:
+        q_system = cn_system(family, cn_weights)
+        cn1_sub = [cn_subs[0]]
+        torch.cuda.synchronize()
+        fa.flash_attention.launches = 0
+        lk.lora_matmul.launches = lk.lora_matmul_grouped.launches = 0
+        qk.quant_matmul.launches = qk.quantize_rows.launches = 0
+        rk.rglru_scan.launches = 0
+        t0 = time.perf_counter()
+        q_req = serve(q_system, cn1_sub, STEPS)[0]
+        torch.cuda.synchronize()
+        nq_wall_s = time.perf_counter() - t0
+        nq_launches = qk.quant_matmul.launches
+        nq_rows = qk.quantize_rows.launches
+        nq_flash = fa.flash_attention.launches
+        nq_others = (lk.lora_matmul.launches + lk.lora_matmul_grouped.launches
+                     + rk.rglru_scan.launches)
+        nq_log = q_system.coordinator.dispatch_log
+        nq_expected, nq_shapes = quant_path(nq_log, cfg)
+        nq_expected_flash, _ = expected_flash(nq_log, cfg)
+        nq_dispatches = [(d.model_id, len(d.nodes), d.segment_steps)
+                         for d in nq_log]
+        if (nq_launches != nq_expected or nq_rows != nq_launches
+                or nq_flash != nq_expected_flash or nq_others):
+            raise AssertionError(
+                f"int8 ControlNet path: quant_matmul {nq_launches} (expected "
+                f"{nq_expected}), quantize_rows {nq_rows}, flash_attention "
+                f"{nq_flash} (expected {nq_expected_flash}), other kernels "
+                f"{nq_others}; dispatches {nq_dispatches}")
+        nq_img = image_of(q_system, q_req)
+        check_image(torch, nq_img, card, "int8 sd3:cn1")
+        e = rel(nq_img, cn_images["sd3:cn1"])
+        if not e < INT8_VS_FP32_REL:
+            raise AssertionError(f"int8 sd3:cn1 vs fp32: rel err {e}")
+        log(f"[path-cn-int8] sd3:cn1 under int8, {STEPS} steps, wall "
+            f"{nq_wall_s:.2f} s (weights drawn and quantized on the card "
+            f"included), quant_matmul launches {nq_launches} and "
+            f"quantize_rows launches {nq_rows} (expected {nq_expected}: 2 "
+            f"streams x 7 x ({cfg.n_layers} backbone + {cn_layers(cfg)} "
+            f"ControlNet layers) x {STEPS} steps + 12 per text batch), "
+            f"flash_attention launches {nq_flash} (expected "
+            f"{nq_expected_flash}), dispatches {nq_dispatches}; int8 vs fp32 "
+            f"image rel err {e:.3e} < {INT8_VS_FP32_REL}  [{card}]")
+        qops.quant_matmul = qref.quant_matmul_ref
+        qops._quantize_rows = qref.quantize_rows_ref
+        try:
+            plain_img = image_of(q_system, serve(q_system, cn1_sub, STEPS)[0])
+        finally:
+            qops.quant_matmul = qk.quant_matmul
+            qops._quantize_rows = real_rows
+        if not torch.equal(nq_img, plain_img):
+            raise AssertionError(f"int8 sd3:cn1, kernels vs plain route: not "
+                                 f"bit-identical, rel err {rel(nq_img, plain_img)}")
+        log(f"[path-cn-int8] kernels vs plain route image rel err "
+            f"{rel(nq_img, plain_img):.2e}, bit-identical: True")
+        # every new (M, K, N) and (M, K): bit for bit, then timed as in 5q
+        for shape in sorted(nq_shapes - q_shapes,
+                            key=lambda s: -s[0] * s[1] * s[2]):
+            if shape not in quant_checked:
+                q_err = max(q_err, check_quant(torch, qk, qref, shape))
+                quant_checked.add(shape)
+                log(f"[kernel] quant_matmul ControlNet path {shape}: "
+                    f"bit-identical")
+            q_times.append({**time_quant(torch, qk, qref, shape),
+                            "path": "ControlNet int8 (sd3:cn1)"})
+            log(f"[time] {json.dumps(q_times[-1])}  [{card}]")
+        q_rows_done = {(m, k) for m, k, _ in q_shapes}
+        for shape in sorted({(m, k) for m, k, _ in nq_shapes} - q_rows_done,
+                            key=lambda s: -s[0] * s[1]):
+            if shape not in rows_checked:
+                check_rows(torch, qk, qref, shape)
+                rows_checked.add(shape)
+                log(f"[kernel] quantize_rows ControlNet path {shape}: "
+                    f"bit-identical")
+            rows_times.append({**time_rows(torch, qk, qref, shape),
+                               "path": "ControlNet int8 (sd3:cn1)"})
+            log(f"[time] {json.dumps(rows_times[-1])}  [{card}]")
+    finally:
+        set_quant_mode(prev_mode)
+    if quant_mode() != prev_mode:
+        raise AssertionError("the quant mode was not restored")
+    del q_system, q_req, nq_img, plain_img
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------- 6n. where the time goes, ControlNet fp32
+    profile_path(torch, system, cn_subs, card, "sd3:cn1 + sd3:cn2",
+                 {"flash_attention": FLASH_KERNELS, "convs": CONV_KERNELS,
+                  "f32_gemms": GEMM_KERNELS})
+    del system, reqs, cn_images, img
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # the headline is the largest shape each path really launched
     served = max(path_shapes, key=lambda s: s[0] * s[1] * s[2] * s[3])
     main = timings[shapes.index(served)]
 
-    def entry(name, source, replaces, launches, err, lead, others):
+    def entry(name, source, replaces, launches, err, lead, others,
+              by_path=None):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
+                **({"launches_by_path": by_path} if by_path else {}),
                 "max_abs_err": err, "ms": lead["ms"],
                 "plain_ms": lead["plain_ms"], "bound_ms": lead["bound_ms"],
                 "bound_by": lead["bound_by"], "library_ms": lead["library_ms"],
@@ -1466,7 +1799,9 @@ def main() -> None:
               "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/kernel.py:109", launches,
               max(errs), main,
-              [t for t in timings if t is not main] + ml_timings),
+              [t for t in timings if t is not main] + ml_timings + cn_timings,
+              {"basic": launches, "basic int8": q_flash, "lora": ml_flash,
+               "controlnet": cn_flash, "controlnet int8": nq_flash}),
         entry("lora_matmul_grouped", lora_src,
               "src/repro/kernels/lora_matmul/kernel.py:172", ml_grouped,
               lora_path_err["grouped"], lora_times[lead_key],
@@ -1477,12 +1812,14 @@ def main() -> None:
         entry("quant_matmul",
               "src/repro_torch/kernels/quant_matmul/csrc/quant_matmul.cu",
               "src/repro/kernels/quant_matmul/kernel.py:68", q_launches,
-              q_err, q_times[0], q_times[1:]),
+              q_err, q_times[0], q_times[1:],
+              {"basic int8": q_launches, "controlnet int8": nq_launches}),
         # not a Pallas kernel: the plain jnp quantization before it
         entry("quantize_rows",
               "src/repro_torch/kernels/quant_matmul/csrc/quantize_rows.cu",
               "src/repro/kernels/quant_matmul/ops.py:112", q_rows, 0.0,
-              rows_times[0], rows_times[1:]),
+              rows_times[0], rows_times[1:],
+              {"basic int8": q_rows, "controlnet int8": nq_rows}),
         entry("rglru_scan",
               "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
               "src/repro/kernels/rglru_scan/kernel.py:61", 0, rglru_err,

@@ -3,11 +3,11 @@
 * :func:`init_text_encoder` / :func:`text_encoder_apply` — a small
   bidirectional transformer standing in for CLIP/T5 (real-scale costs are
   carried by the profiles, not by this stand-in's size);
-* :func:`init_vae` / :func:`vae_decode` — the convolutional decoder
-  mapping the 8x-downsampled latent space back to pixels.  Images and
-  latents are NHWC, conv weights HWIO, as in the JAX package.
-
-``vae_encode`` is not ported yet.
+* :func:`init_vae` / :func:`vae_encode` / :func:`vae_decode` — the
+  convolutional encoder mapping pixels to the 8x-downsampled latent space
+  (the ControlNet conditioning) and the decoder mapping latents back to
+  pixels.  Images and latents are NHWC, conv weights HWIO, as in the JAX
+  package.
 """
 
 from __future__ import annotations
@@ -158,8 +158,8 @@ def init_vae(gen: torch.Generator, image_channels: int = 3,
              latent_channels: int = 4, base: int = 32,
              dtype: torch.dtype = torch.float32) -> Params:
     """Three stride-2 stages: pixels (S*8, S*8) <-> latents (S, S).  The
-    encoder half is drawn too, so the tree matches the JAX package's
-    one-for-one; only the decoder runs in this port so far."""
+    tree matches the JAX package's one-for-one: the encoder half
+    (``enc``, ``enc_out``) and the decoder half (``dec_in``, ``dec``)."""
     return {
         "enc": [
             _conv_init(gen, 3, 3, image_channels, base, dtype),
@@ -181,6 +181,27 @@ def _conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     stride 1 with odd kernels, XLA's SAME padding is symmetric, which is
     what torch's ``padding="same"`` does."""
     return F.conv2d(x, w.permute(3, 2, 0, 1), padding="same")
+
+
+def _conv_strided(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """Strided ``"SAME"`` conv of an NCHW tensor with an HWIO weight, padded
+    as XLA pads: ``ceil(n / stride)`` outputs, the padding's odd element
+    after the input.  A 3x3 kernel at stride 2 on an even input pads
+    (0, 1), where torch's ``padding=1`` would pad (1, 1) and shift every
+    output by one input pixel."""
+    pads = []
+    for n, k in ((x.shape[3], w.shape[1]), (x.shape[2], w.shape[0])):
+        total = max((-(-n // stride) - 1) * stride + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.conv2d(F.pad(x, pads), w.permute(3, 2, 0, 1), stride=stride)
+
+
+def vae_encode(params: Params, image: torch.Tensor) -> torch.Tensor:
+    """image [B, H, W, 3] -> latents [B, H/8, W/8, C]."""
+    x = image.permute(0, 3, 1, 2)
+    for w in params["enc"]:
+        x = F.silu(_conv_strided(x, w, 2))
+    return _conv(x, params["enc_out"]).permute(0, 2, 3, 1).contiguous()
 
 
 def vae_decode(params: Params, latents: torch.Tensor) -> torch.Tensor:

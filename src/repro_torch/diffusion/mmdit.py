@@ -15,8 +15,12 @@ With ``lora_stack``/``lora_idx``, the image-stream q/k/v/o projections
 run the grouped multi-adapter form (:func:`_lora_proj`).  Under
 ``REPRO_QUANT`` the stream projections are quantized dicts
 (:func:`quantize_mmdit_params`) and take the quantized route of
-:func:`~repro_torch.nn.layers.qdense`.  The ControlNet branch and the
-sequence-sharded forward are not ported yet.
+:func:`~repro_torch.nn.layers.qdense`.
+
+The ControlNet branch (:func:`init_controlnet`, :func:`controlnet_apply`)
+is a truncated stack of the same blocks whose per-layer residuals feed
+:func:`mmdit_apply`'s ``control_residuals``.  The sequence-sharded
+forward is not ported yet.
 """
 
 from __future__ import annotations
@@ -249,3 +253,54 @@ def mmdit_apply(
     x = modulate(rms_norm(x, params["final_norm"]), shift, scale)
     out = qdense(x, params["final_proj"])
     return unpatchify(out, cfg.patch, cfg.latent_size, cfg.latent_channels)
+
+
+# -------------------------------------------------------------- ControlNet
+
+def init_controlnet(gen: torch.Generator, cfg: DiTConfig,
+                    n_cn_layers: Optional[int] = None) -> Params:
+    """ControlNet branch drawn on the generator's device: the JAX package's
+    tree leaf for leaf (the backbone's embeddings, a zero ``cond_embed``,
+    ``n_cn`` stacked layers and small ``[n_cn, d, d]`` residual
+    projections).  The JAX package draws a whole backbone to keep its four
+    embeddings; this draws only what it keeps (a torch generator never
+    gives JAX's draws anyway)."""
+    n_cn = n_cn_layers or max(1, cfg.n_layers // 2)
+    d, dt = cfg.d_model, cfg.dtype
+    in_dim = cfg.patch * cfg.patch * cfg.latent_channels
+    return {
+        "patch_embed": dense_init(gen, in_dim, d, dt),
+        "cond_embed": dense_init(gen, in_dim, d, dt, scale=0.0),
+        "text_proj": dense_init(gen, cfg.text_dim, d, dt),
+        "t_mlp1": dense_init(gen, 256, d, dt),
+        "t_mlp2": dense_init(gen, d, d, dt),
+        "layers": init_layer(gen, cfg, n_cn),
+        # small (not zero) residual projections so the executable plane is
+        # non-degenerate; true zero-init is a training-time concern
+        "zero_proj": _stacked_dense(gen, n_cn, d, d, dt, scale=0.02),
+    }
+
+
+def controlnet_apply(
+    params: Params,
+    cfg: DiTConfig,
+    latents: torch.Tensor,        # current noisy latents [B, S, S, C]
+    cond_latents: torch.Tensor,   # VAE-encoded reference image [B, S, S, C]
+    t: torch.Tensor,              # [B]
+    text_emb: torch.Tensor,       # [B, Tc, text_dim]
+) -> torch.Tensor:
+    """Returns residuals ``[n_layers, B, Ti, d]``, zero-padded to the
+    backbone's full depth as in the JAX package: layer ``i < n_cn`` holds
+    ``x_i @ zero_proj[i]``, the deeper layers zeros.  The stack is written
+    in place, so no per-layer copy and no concatenation is made."""
+    x, c, t_emb = _embed_inputs(params, cfg, latents, t, text_emb)
+    x = x + qdense(patchify(cond_latents, cfg.patch), params["cond_embed"])
+    out = None
+    for i in range(params["zero_proj"].shape[0]):
+        x, c = mmdit_block(_layer(params["layers"], i), x, c, t_emb,
+                           cfg.n_heads)
+        r = qdense(x, params["zero_proj"][i])
+        if out is None:
+            out = r.new_zeros((cfg.n_layers,) + tuple(r.shape))
+        out[i] = r
+    return out

@@ -1,5 +1,5 @@
 """Servable diffusion component models (the ``Model`` subclasses), PyTorch
-port of the basic and LoRA text-to-image workflows' components.
+port of the basic, ControlNet and LoRA text-to-image workflows' components.
 
 Every component's ``cost()`` carries the real-scale statistics (for the
 profiles and the scheduler) and its ``load()/execute()`` run the family's
@@ -12,8 +12,9 @@ Devices: ``load(device)`` builds the components on the backend's device
 ``weights`` a caller handed in.  The trivial ops run inline on the
 coordinator without components: ``LatentsGenerator`` draws on the CPU
 from a generator seeded with the request's seed, so the CPU and the card
-start from the same latents, and every executor-run op moves its inputs
-onto its components' device before it computes.
+start from the same latents, ``DenoiseStep`` and ``ResidualCombine``
+compute on their inputs' device, and every executor-run op moves its
+inputs onto its components' device before it computes.
 
 LoRA adapters apply two ways: folded into the backbone's weights once per
 ``(model_id, patch_ids)`` placement (``fold_patches``, when every request
@@ -25,7 +26,7 @@ Under ``REPRO_QUANT=int8|fp8`` every load quantizes the projection weights
 (the model's own draw and a caller's ``weights`` alike; quantizing a
 quantized weight is the identity), and every fold requantizes, so the
 components and the fold cache hold the small form.  Single-device only:
-ControlNet, donation and the sharded plane are not ported yet.
+donation and the sharded plane are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from repro_torch.diffusion.encoders import (
     text_encoder_apply,
     tokenize_batch,
     vae_decode,
+    vae_encode,
 )
 from repro_torch.diffusion.lora import (
     fold_lora,
@@ -60,6 +62,8 @@ from repro_torch.diffusion.lora import (
     stack_text_loras,
 )
 from repro_torch.diffusion.mmdit import (
+    controlnet_apply,
+    init_controlnet,
     init_mmdit,
     mmdit_apply,
     quantize_mmdit_params,
@@ -474,6 +478,91 @@ class DiffusionBackbone(Model):
         return DenoiseSegment(self, controlnets, n_steps)
 
 
+class ControlNet(Model):
+    """The ControlNet branch of one denoising step: per-layer residuals for
+    the backbone's deferred ``controlnet_residuals`` input (§7.3), from the
+    noisy latents, the VAE-encoded reference image, the prompt and the
+    step's time."""
+
+    scan_role = "controlnet"
+
+    def __init__(self, family: DiffusionFamily, variant: int = 1,
+                 weights: Optional[Dict[str, Any]] = None) -> None:
+        self.family = family
+        self.variant = variant
+        self.weights = weights
+        super().__init__(model_id=f"controlnet{variant}:{family.name}")
+
+    def setup_io(self) -> None:
+        self.add_input("latents", TensorType())
+        self.add_input("cond_latents", TensorType())
+        self.add_input("prompt_embeds", TensorType())
+        self.add_input("t", float)
+        self.add_output("controlnet_residuals", TensorType())
+
+    def load(self, device: Any = None) -> Dict[str, Any]:
+        """Draws the branch on the device (or moves the caller's
+        ``weights``) and quantizes its stream projections per the active
+        ``REPRO_QUANT`` mode; ``zero_proj`` and the embeddings stay as
+        they are, as in the JAX package."""
+        dev = _device(device)
+        cfg = self.family.toy
+        if self.weights is not None:
+            params = to_device(self.weights, dev)
+        else:
+            params = init_controlnet(_generator(dev, self.model_id), cfg)
+        return {"params": quantize_mmdit_params(params), "cfg": cfg,
+                "device": dev}
+
+    @staticmethod
+    def residuals(model_components: Dict[str, Any], lat: torch.Tensor,
+                  cond: torch.Tensor, t: torch.Tensor,
+                  emb: torch.Tensor) -> torch.Tensor:
+        """The ``[n_layers, B, Ti, d]`` residual stack of one stacked
+        forward: the one routine the per-step node and the fused segment
+        both call.  ``t`` is an f32 ``[B]`` vector on the components'
+        device."""
+        return controlnet_apply(model_components["params"],
+                                model_components["cfg"], lat, cond, t, emb)
+
+    def execute(self, model_components: Dict[str, Any], **kw: Any) -> Dict[str, Any]:
+        return self.execute_batch(model_components, [kw])[0]
+
+    def execute_batch(
+        self, model_components: Dict[str, Any], batch_kwargs: List[Dict[str, Any]]
+    ) -> List[Dict[str, Any]]:
+        """Stacked cross-request forward; the residuals come back
+        layer-major, so each request's rows are split off axis 1."""
+        lats = [kw["latents"] for kw in batch_kwargs]
+        if any(l.shape[1:] != lats[0].shape[1:] for l in lats[1:]):
+            return self._execute_sequential(model_components, batch_kwargs)
+        dev = model_components["device"]
+        sizes = [int(l.shape[0]) for l in lats]
+        lat = torch.cat([l.to(dev) for l in lats], dim=0)
+        cond = torch.cat([kw["cond_latents"].to(dev) for kw in batch_kwargs],
+                         dim=0)
+        emb = torch.cat([kw["prompt_embeds"].to(dev) for kw in batch_kwargs],
+                        dim=0)
+        t = _f32_rows([float(kw["t"]) for kw in batch_kwargs], sizes, dev)
+        res = self.residuals(model_components, lat, cond, t, emb)
+        return [{"controlnet_residuals": chunk}
+                for chunk in _split_rows(res, sizes, dim=1)]
+
+    def cost(self) -> ModelCost:
+        f = self.family
+        return ModelCost(
+            flops_per_item=f.controlnet_step_flops(),
+            param_bytes=f.controlnet_bytes(),
+            act_io_bytes=6.0 * f.n_layers_real * (f.image_tokens + f.text_tokens)
+            * f.d_model_real,
+            output_bytes=f.controlnet_residual_bytes(),
+            max_parallelism=2,           # batch-axis data parallelism
+            max_batch=8,
+            calls_per_request=f.denoise_steps,
+            quantizable=True,            # same stream projections as MMDiT
+        )
+
+
 class VAEDecode(Model):
     def __init__(self, family: DiffusionFamily,
                  weights: Optional[Dict[str, Any]] = None) -> None:
@@ -521,6 +610,56 @@ class VAEDecode(Model):
         )
 
 
+class VAEEncode(Model):
+    """Reference-image encoder.  It shares the VAE's ``model_id`` (and so
+    the executor's cached components) with :class:`VAEDecode`, so its
+    ``load`` gives exactly the decoder's components, from the same
+    ``weights``."""
+
+    def __init__(self, family: DiffusionFamily,
+                 weights: Optional[Dict[str, Any]] = None) -> None:
+        self.family = family
+        self.weights = weights
+        super().__init__(model_id=f"vae:{family.name}")
+
+    def setup_io(self) -> None:
+        self.add_input("image", Image)
+        self.add_output("cond_latents", TensorType())
+
+    def load(self, device: Any = None) -> Dict[str, Any]:
+        return VAEDecode(self.family, self.weights).load(device)
+
+    def _as_tensor(self, img: Any, dev: torch.device) -> torch.Tensor:
+        """The image as f32 ``[B, H, W, 3]`` on ``dev``; an input without a
+        shape (the JAX package's stand-in for a PIL image) becomes a zero
+        image of the family's pixel size."""
+        if not hasattr(img, "shape"):
+            cfg = self.family.toy
+            return torch.zeros((1, cfg.latent_size * 8, cfg.latent_size * 8, 3),
+                               device=dev)
+        return torch.as_tensor(img, dtype=torch.float32, device=dev)
+
+    def execute(self, model_components: Dict[str, Any], **kw: Any) -> Dict[str, Any]:
+        return self.execute_batch(model_components, [kw])[0]
+
+    def execute_batch(
+        self, model_components: Dict[str, Any], batch_kwargs: List[Dict[str, Any]]
+    ) -> List[Dict[str, Any]]:
+        dev = model_components["device"]
+        imgs = [self._as_tensor(kw["image"], dev) for kw in batch_kwargs]
+        if any(i.shape[1:] != imgs[0].shape[1:] for i in imgs[1:]):
+            return self._execute_sequential(model_components, batch_kwargs)
+        sizes = [int(i.shape[0]) for i in imgs]
+        lat = vae_encode(model_components["params"], torch.cat(imgs, dim=0))
+        return [{"cond_latents": chunk} for chunk in _split_rows(lat, sizes)]
+
+    def cost(self) -> ModelCost:
+        c = VAEDecode(self.family).cost()
+        return ModelCost(c.flops_per_item, c.param_bytes, c.act_io_bytes,
+                         self.family.latent_bytes(),
+                         max_parallelism=c.max_parallelism, max_batch=16)
+
+
 class DenoiseStep(Model):
     """Euler scheduler step — trivial arithmetic, runs inline on the
     velocity's device."""
@@ -552,12 +691,39 @@ class DenoiseStep(Model):
         return ModelCost(1e6, 0, 1e6, self.family.latent_bytes(), max_batch=64)
 
 
+class ResidualCombine(Model):
+    """Sum two ControlNets' residual stacks — trivial, inline on the
+    coordinator, on the stacks' own device."""
+
+    trivial = True
+    scan_role = "combine"
+
+    def __init__(self, family: DiffusionFamily) -> None:
+        self.family = family
+        super().__init__(model_id="residual_combine")
+
+    def setup_io(self) -> None:
+        self.add_input("a", TensorType())
+        self.add_input("b", TensorType())
+        self.add_output("controlnet_residuals", TensorType())
+
+    def execute(self, model_components: Dict[str, Any], **kw: Any) -> Dict[str, Any]:
+        return {"controlnet_residuals": kw["a"] + kw["b"]}
+
+    def cost(self) -> ModelCost:
+        return ModelCost(1e6, 0, 1e6,
+                         self.family.controlnet_residual_bytes(), max_batch=64)
+
+
 class DenoiseSegment(Model):
     """A fused run of S consecutive denoising steps — ONE dispatch.
 
     Built by :class:`~repro_torch.core.passes.SegmentFusionPass` from a
-    recognized ``DiffusionBackbone → DenoiseStep`` chain.  Each step calls
-    the backbone's own :meth:`DiffusionBackbone.velocity` and the shared
+    recognized ``ControlNet* → ResidualCombine* → DiffusionBackbone →
+    DenoiseStep`` chain.  Each step calls each ControlNet's own
+    :meth:`ControlNet.residuals` (summed in the chain's order, as the
+    combine nodes sum them), the backbone's own
+    :meth:`DiffusionBackbone.velocity` and the shared
     :func:`~repro_torch.diffusion.sampler.denoise_step`, so a segment's
     output equals the unfused chain's bit for bit.
 
@@ -568,26 +734,27 @@ class DenoiseSegment(Model):
     load-adaptive chunks via the reserved ``_seg_start`` / ``_seg_steps``
     kwargs.  LoRA patches fold into the backbone params once per placement;
     a batch mixing tenants runs every step's forward with per-row adapters
-    (:meth:`execute_batch_multilora`).  Chains with ControlNet branches are
-    not ported yet.
+    (:meth:`execute_batch_multilora`); the ControlNet residuals reach the
+    backbone on both routes.
     """
 
     is_segment = True
     supports_multilora = True
 
     def __init__(self, backbone: DiffusionBackbone,
-                 controlnets: Sequence[Model], n_steps: int) -> None:
-        if controlnets:
-            raise NotImplementedError(
-                "DenoiseSegment: ControlNet chains are not ported yet")
+                 controlnets: Sequence[ControlNet], n_steps: int) -> None:
         self.backbone = backbone
+        self.cns = list(controlnets)
         self.family = backbone.family
         self.n_steps = int(n_steps)
-        super().__init__(model_id="segment:" + backbone.model_id)
+        super().__init__(model_id="segment:" + backbone.model_id + "".join(
+            f"+{cn.model_id}" for cn in self.cns))
 
     def setup_io(self) -> None:
         self.add_input("latents", TensorType())
         self.add_input("prompt_embeds", TensorType())
+        if self.cns:
+            self.add_input("cond_latents", TensorType())
         # untyped literal ports: the per-step schedule, captured by the
         # fusion pass from the unfused chain's node literals
         self.add_input("t_mid", None)
@@ -602,7 +769,8 @@ class DenoiseSegment(Model):
         return self.backbone.patches
 
     def load(self, device: Any = None) -> Dict[str, Any]:
-        return {"backbone": self.backbone.load(device)}
+        return {"backbone": self.backbone.load(device),
+                "cns": [cn.load(device) for cn in self.cns]}
 
     def fold_patches(
         self,
@@ -625,10 +793,11 @@ class DenoiseSegment(Model):
 
     def _run(self, comps: Dict[str, Any], batch_kwargs: List[Dict[str, Any]],
              sizes: List[int], steps: int, lat: torch.Tensor,
-             emb: torch.Tensor, lora: Optional[Tuple] = None) -> torch.Tensor:
-        """``steps`` Euler steps of the stacked batch, each one guided
-        backbone forward (per-row adapters when ``lora`` is given) plus the
-        shared update."""
+             emb: torch.Tensor, cond: Optional[torch.Tensor],
+             lora: Optional[Tuple] = None) -> torch.Tensor:
+        """``steps`` Euler steps of the stacked batch, each the ControlNets'
+        residuals at the step's time, one guided backbone forward
+        (per-row adapters when ``lora`` is given) and the shared update."""
         dev = comps["backbone"]["device"]
         cols = {"t_mid": [], "t_cur": [], "t_next": []}
         gs = []
@@ -642,7 +811,11 @@ class DenoiseSegment(Model):
         for s in range(steps):
             t, tc, tn = (_f32_rows([c[s] for c in cols[name]], sizes, dev)
                          for name in ("t_mid", "t_cur", "t_next"))
-            v = self.backbone.velocity(comps["backbone"], lat, t, emb, None,
+            res = None
+            for cn, cn_comps in zip(self.cns, comps["cns"]):
+                r = cn.residuals(cn_comps, lat, cond, t, emb)
+                res = r if res is None else res + r
+            v = self.backbone.velocity(comps["backbone"], lat, t, emb, res,
                                        guidance, lora=lora)
             lat = denoise_step(lat, v, tc, tn)
         return lat
@@ -654,24 +827,26 @@ class DenoiseSegment(Model):
                        ) -> Optional[int]:
         """The chunk length every request of the batch covers, or None when
         the batch cannot be stacked (shapes or chunk lengths disagree)."""
-        lats = [kw["latents"] for kw in batch_kwargs]
-        embs = [kw["prompt_embeds"] for kw in batch_kwargs]
+        names = ("latents", "prompt_embeds") + (
+            ("cond_latents",) if self.cns else ())
         chunks = [self._chunk_of(kw) for kw in batch_kwargs]
         steps = chunks[0][1]
-        if (any(l.shape[1:] != lats[0].shape[1:] for l in lats[1:])
-                or any(e.shape[1:] != embs[0].shape[1:] for e in embs[1:])
+        if (any(kw[n].shape[1:] != batch_kwargs[0][n].shape[1:]
+                for n in names for kw in batch_kwargs[1:])
                 or any(c[1] != steps for c in chunks[1:])):
             return None
         return steps
 
-    @staticmethod
-    def _stack(dev: torch.device, batch_kwargs: List[Dict[str, Any]]) -> Tuple:
-        lats = [kw["latents"] for kw in batch_kwargs]
-        sizes = [int(l.shape[0]) for l in lats]
-        lat = torch.cat([l.to(dev) for l in lats], dim=0)
-        emb = torch.cat([kw["prompt_embeds"].to(dev) for kw in batch_kwargs],
-                        dim=0)
-        return lat, emb, sizes
+    def _stack(self, dev: torch.device,
+               batch_kwargs: List[Dict[str, Any]]) -> Tuple:
+        """(lat, emb, cond, sizes) on ``dev``; ``cond`` is None without
+        ControlNets."""
+        def cat(name):
+            return torch.cat([kw[name].to(dev) for kw in batch_kwargs], dim=0)
+
+        sizes = [int(kw["latents"].shape[0]) for kw in batch_kwargs]
+        cond = cat("cond_latents") if self.cns else None
+        return cat("latents"), cat("prompt_embeds"), cond, sizes
 
     def execute_batch(
         self, model_components: Dict[str, Any], batch_kwargs: List[Dict[str, Any]]
@@ -683,10 +858,10 @@ class DenoiseSegment(Model):
         if steps <= 0:
             return [{"latents": kw["latents"]} for kw in batch_kwargs]
         dev = model_components["backbone"]["device"]
-        lat, emb, sizes = self._stack(dev, batch_kwargs)
+        lat, emb, cond, sizes = self._stack(dev, batch_kwargs)
         comps = _fold_direct(self, model_components,
                              batch_kwargs[0].get("_patches"), dev)
-        out = self._run(comps, batch_kwargs, sizes, steps, lat, emb)
+        out = self._run(comps, batch_kwargs, sizes, steps, lat, emb, cond)
         return [{"latents": chunk} for chunk in _split_rows(out, sizes)]
 
     def execute_batch_multilora(
@@ -704,20 +879,27 @@ class DenoiseSegment(Model):
             return None
         order, per_req = groups
         dev = model_components["backbone"]["device"]
-        lat, emb, sizes = self._stack(dev, batch_kwargs)
+        lat, emb, cond, sizes = self._stack(dev, batch_kwargs)
         stack = _cached_lora_stack(model_components, order, adapters)
         out = self._run(model_components, batch_kwargs, sizes, steps, lat, emb,
-                        lora=(stack, _row_idx(per_req, sizes, dev)))
+                        cond, lora=(stack, _row_idx(per_req, sizes, dev)))
         return [{"latents": chunk} for chunk in _split_rows(out, sizes)]
 
     def cost(self) -> ModelCost:
-        """PER-STEP terms with ``steps_per_call`` carrying the segment
-        length; only the final latent leaves the device per chunk."""
+        """PER-STEP terms (the backbone and its ControlNets) with
+        ``steps_per_call`` carrying the segment length; only the final
+        latent leaves the device per chunk."""
         b = self.backbone.cost()
+        flops, params, act = b.flops_per_item, b.param_bytes, b.act_io_bytes
+        for cn in self.cns:          # summed in the JAX package's order
+            c = cn.cost()
+            flops += c.flops_per_item
+            params += c.param_bytes
+            act += c.act_io_bytes
         return ModelCost(
-            flops_per_item=b.flops_per_item,
-            param_bytes=b.param_bytes,
-            act_io_bytes=b.act_io_bytes,
+            flops_per_item=flops,
+            param_bytes=params,
+            act_io_bytes=act,
             output_bytes=self.family.latent_bytes(),
             max_parallelism=b.max_parallelism,
             max_batch=b.max_batch,
@@ -728,7 +910,8 @@ class DenoiseSegment(Model):
             lora_rank=b.lora_rank,
             lora_flops_per_rank=b.lora_flops_per_rank,
             lora_bytes_per_adapter=b.lora_bytes_per_adapter,
-            # the segment is the backbone's steps: it quantizes as they do
+            # the backbone and its ControlNets all quantize, so the segment
+            # prices quantized too
             quantizable=True,
         )
 

@@ -1,6 +1,8 @@
 """The port's coordinator under crash-and-revive fault schedules: every
-request terminates exactly once, checked with the reference package's
-serving-system invariants on the same toy workflow.
+request terminates exactly once, checked with the port's serving-system
+invariants (``repro_torch.sim.check_invariants``) on the same toy
+workflow; those invariants give the reference package's findings on the
+same coordinator.
 
 The property tests are those of ``tests/test_chaos_props.py`` and
 ``tests/test_substrate.py``'s failure-schedule property, run against the
@@ -10,8 +12,9 @@ that neither a random draw nor a saved example decides the outcome."""
 import pytest
 from hypothesis import HealthCheck, given, settings, strategies as st
 
+import repro.sim as jsim
 import repro_torch.core as tcore
-from repro.sim import check_invariants
+from repro_torch.sim import assert_invariants, check_invariants
 
 FIXED_SWEEP = settings(derandomize=True, database=None, max_examples=10,
                        deadline=None,
@@ -255,3 +258,44 @@ def test_crash_revive_terminates_each_request_once(every, revive_after):
     assert sorted(r.rid for r in co.finished) == sorted(
         r.rid for r in reqs if r.status == "done")
     assert all(r.status in ("done", "rejected", "shed") for r in reqs)
+
+
+def _corrupt(co):
+    """Break the coordinator's books the ways the invariants look for: a
+    request finished twice and also shed, a leaked store key, a duplicate
+    commit, a negative refcount and a node left mid-flight."""
+    eng = co.engine
+    done = co.finished[0]
+    co.finished.append(done)
+    co.shed.append(done)
+    key = "r999:leak"
+    eng.put(key, None, 8, value="<leak>")
+    eng.duplicate_puts += 2
+    eng.min_refcount_seen = -1
+    done.remaining = 1
+    next(iter(done.nodes.values())).state = "running"
+    co.inflight[done.rid] = done
+
+
+@pytest.mark.parametrize("seed,corrupt", [(3, False), (8, False), (3, True)],
+                         ids=["seed3", "seed8", "seed3-corrupted"])
+def test_invariants_match_the_reference_module(seed, corrupt):
+    """After a chaos run (and after corrupting its books), the port's
+    ``check_invariants`` returns the reference's list, drained or not."""
+    faults = tcore.FaultPlane(seed=seed, crash_every_batches=3,
+                              revive_after=0.5, transient_p=0.1,
+                              fetch_loss_p=0.1)
+    sys_, _ = _run_chaos(faults)
+    co = sys_.coordinator
+    if corrupt:
+        _corrupt(co)
+    for drained in (True, False):
+        errs = check_invariants(co, drained=drained)
+        assert errs == jsim.check_invariants(co, drained=drained)
+        assert bool(errs) == corrupt
+    if corrupt:
+        assert len(check_invariants(co)) >= 6
+        with pytest.raises(AssertionError, match="invariant violations"):
+            assert_invariants(co)
+    else:
+        assert_invariants(co)

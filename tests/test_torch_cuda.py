@@ -414,3 +414,73 @@ def test_rglru_kernel_matches_plain_version(card, b, t, d):
     torch.testing.assert_close(out, rglru_ref(a, x), atol=2e-5, rtol=2e-5)
     with pytest.raises(ValueError, match="float32"):
         rglru_scan(a.double(), x.double())
+
+
+# --------------------------------------------------------------------------
+# the ControlNet workflows: the card against the CPU on the same weights
+# --------------------------------------------------------------------------
+
+def _rel(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.cuda
+def test_vae_encode_on_the_card_matches_cpu(card):
+    """Three stride-2 convs (TF32 off in cuDNN): within 1e-5 relative."""
+    import repro_torch  # noqa: F401  (turns TF32 off)
+    from repro_torch.diffusion import SD3
+    from repro_torch.diffusion.encoders import vae_encode
+    from repro_torch.diffusion.ops import VAEDecode
+    from repro_torch.weights import to_device
+
+    params = VAEDecode(SD3).load("cpu")["params"]
+    img = torch.from_numpy(np.random.default_rng(4).uniform(
+        -1, 1, (2, 256, 256, 3)).astype(np.float32))
+    want = vae_encode(params, img)
+    got = vae_encode(to_device(params, card), img.to(card))
+    assert got.device.type == "cuda" and tuple(got.shape) == (2, 32, 32, 4)
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cns", [1, 2])
+def test_controlnet_workflow_on_the_card_matches_cpu(card, n_cns):
+    """The toy sd3:cn1 / sd3:cn2 request served on the card and on the CPU
+    from the same weights (the ControlNets with a nonzero ``cond_embed``)
+    and latents: within 1e-4 relative, through the flash-attention kernel."""
+    import repro_torch.core as tcore
+    import repro_torch.diffusion as tdiff
+
+    cpu_ms, gpu_ms = tdiff.ModelSet(tdiff.SD3), tdiff.ModelSet(tdiff.SD3)
+    for name in ("text_enc", "backbone", "vae_dec", "cn1", "cn2"):
+        params = getattr(cpu_ms, name).load("cpu")["params"]
+        if name.startswith("cn"):
+            gen = torch.Generator().manual_seed(int(name[-1]))
+            ce = params["cond_embed"]
+            params = {**params, "cond_embed": torch.randn(
+                tuple(ce.shape), generator=gen) / ce.shape[0] ** 0.5}
+        for ms in (cpu_ms, gpu_ms):
+            getattr(ms, name).weights = params
+            if name == "vae_dec":
+                ms.vae_enc.weights = params
+    ref = np.random.default_rng(6).uniform(-1, 1, (1, 128, 128, 3)).astype(
+        np.float32)
+    images = {}
+    for dev, ms in (("cuda", gpu_ms), ("cpu", cpu_ms)):
+        system = tcore.ServingSystem(n_executors=1,
+                                     backend=tcore.LocalBackend(device=dev))
+        wf = tdiff.make_controlnet_workflow("sd3", n_cns, ms)
+        system.register(wf)
+        before = flash_attention.launches
+        req = system.submit(wf.name, inputs={"seed": 3, "prompt": "a fox",
+                                             "ref_image": torch.from_numpy(ref)},
+                            steps=3)
+        system.run()
+        assert req.status == "done"
+        images[dev] = system.coordinator.engine.value_of(
+            req.ref_key(req.graph.outputs["image"]))
+        if dev == "cuda":
+            assert flash_attention.launches > before
+    assert images["cuda"].device.type == "cuda"
+    assert _rel(images["cuda"], images["cpu"]) < 1e-4
