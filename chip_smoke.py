@@ -157,8 +157,31 @@ Phases (any failed check raises, and the script exits non-zero):
    under the profiler; flash attention, cuDNN's convolutions and cuBLAS's
    f32 GEMMs by device time and share of busy time, and the idle share.
 
+7l. A trace through the serving launcher (``repro_torch.launch.serve``):
+   Table 2's S1 at full width, every model's weights drawn once
+   (``s1_model_set``; the ControlNets those of phase 4n), served by
+   ``serve()`` with ``SERVE_ARGS`` and the card (``--setting s1 --plane local
+   --executors 1 --rate 1.0 --duration 120 --cv 2.0 --slo-scale 2.0
+   --device cuda``: the first 8 requests of ``generate_trace``, 3 steps,
+   admission on), twice: ``REPRO_DONATE`` and ``REPRO_OVERLAP`` off, then
+   both on (fresh systems: the flags are read at build and at load).
+   Counts set to 0 just before each run and read just after: flash
+   attention exactly ``expected_flash`` of the run's dispatches, no other
+   kernel.  Each run: ``check_invariants`` clean; every image (1, 1024,
+   1024, 3), finite, in [-1, 1]; across the runs the same requests finish
+   and each image is bit-identical.  Printed per run: wall and the
+   coordinator's makespan, requests done and rejected, SLO attainment,
+   mean, p50 and p99 latency, dispatches, overlap dispatches and hidden
+   seconds, peak memory, each model's predicted (``GPU_H800`` profile) and
+   measured seconds a dispatch, the dispatch timeline; and why no decode
+   overlapped, when none did.
+
+5l. Flash attention at each shape the trace gave it that phases 5, 5c and
+   5n did not cover (a text-encoder batch of three prompts), held against
+   the plain version (f32 atol 2e-5) and timed as in phase 5.
+
 The phases run in the order 1, 2, 3, 4, 5, 6, 4q, 5q, 6q, 4b, 4c, 5b, 6b,
-5c, 4n, 5n, 4nq, 6n.  Before the last two lines, one JSON ``kernels`` line
+5c, 4n, 5n, 4nq, 6n, 7l, 5l.  Before the last two lines, one JSON ``kernels`` line
 lists every kernel, ``quantize_rows`` (which replaces plain code, not a
 Pallas kernel) among them: its ``launches`` are the count from its own
 path's run (the single-adapter LoRA kernel and ``rglru_scan`` have no
@@ -268,6 +291,11 @@ INT8_VS_FP32_REL = 0.25
 # toy image, card against CPU, per mode (the CPU tests' served bounds:
 # int8 rounding flips move the int8 image by about 2e-2)
 TOY_QUANT_REL = {"int8": 2.5e-2, "fp8": 1e-4}
+# phase 7l: the serving launcher's arguments but the device (its defaults,
+# on one executor: every executor of one LocalBackend shares the one card)
+SERVE_ARGS = ["--setting", "s1", "--plane", "local", "--executors", "1",
+              "--rate", "1.0", "--duration", "120", "--cv", "2.0",
+              "--slo-scale", "2.0"]
 # (B, T, D): tests/test_kernels.py's RG-LRU grid, then RecurrentGemma-2B's
 # width (D 2560) at two batch and sequence splits
 RGLRU_GRID = [(2, 128, 128), (1, 200, 96), (3, 64, 256), (2, 300, 50)]
@@ -915,6 +943,186 @@ def expected_flash(dispatch_log, cfg) -> tuple:
             shapes.add((4 * n, cfg.text_tokens, cfg.text_tokens,
                         cfg.text_dim // 4))
     return expected, shapes
+
+
+def s1_model_set(family, cn_weights, device="cuda"):
+    """Table 2's S1 ``ModelSet`` at the family's width with every model's
+    weights drawn once, on ``device`` (the text encoder, backbone and VAE
+    from their model ids' seeds; the ControlNets ``cn_weights``): systems
+    built on it load by reference and draw nothing."""
+    from repro_torch.diffusion import ModelSet
+
+    ms = ModelSet(family)
+    ms.text_enc.weights = ms.text_enc.load(device)["params"]
+    ms.backbone.weights = ms.backbone.load(device)["params"]
+    ms.vae_dec.weights = ms.vae_enc.weights = ms.vae_dec.load(device)["params"]
+    ms.cn1.weights, ms.cn2.weights = cn_weights[1], cn_weights[2]
+    return ms
+
+
+def replay_trace(torch, ms, flags, argv, counters):
+    """One run of the serving launcher (``repro_torch.launch.serve.serve``)
+    on ``ms`` with ``REPRO_DONATE`` and ``REPRO_OVERLAP`` both ``flags``
+    (both read at build and load, so the system is fresh), the kernel
+    counts set to 0 just before.  Returns the system, its wall seconds,
+    each dispatch's (virtual start, model id, request ids, predicted
+    seconds, measured seconds), the launches and the peak memory."""
+    from repro_torch.core.runtime import Coordinator, set_overlap
+    from repro_torch.diffusion.sampler import set_donate_buffers
+    from repro_torch.launch.serve import parse_args, serve
+
+    dispatches = []
+    real = Coordinator._execute_real
+
+    def recorded(self, batch):
+        start = self.now
+        measured = real(self, batch)
+        dispatches.append((start, batch.model_id,
+                           sorted(rn.request.rid for rn in batch.nodes),
+                           batch.l_infer, measured))
+        return measured
+
+    prev = (set_donate_buffers(flags), set_overlap(flags))
+    Coordinator._execute_real = recorded
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        system = serve(parse_args(argv), model_sets={"sd3": ms})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+    finally:
+        Coordinator._execute_real = real
+        set_donate_buffers(prev[0])
+        set_overlap(prev[1])
+    return (system, wall, dispatches, launches,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def trace_phase(torch, family, cn_weights, card, counters, device="cuda"):
+    """Phase 7l: the first 8 requests of a ``generate_trace`` of Table 2's
+    S1 through the serving launcher at the family's width, once with
+    ``REPRO_DONATE`` and ``REPRO_OVERLAP`` off, once with both on; the
+    checks and the printed metrics of the docstring's 7l.  Returns the
+    shapes the runs gave flash attention and its launches in each run."""
+    from repro_torch.core.profiles import GPU_H800
+    from repro_torch.sim import check_invariants, quantile
+
+    cfg = family.toy
+    ms = s1_model_set(family, cn_weights, device)
+    argv = SERVE_ARGS + ["--device", device]
+    runs, flash_shapes, flash_launches = {}, set(), []
+    for flags in (False, True):
+        system, wall, disp, launches, peak = replay_trace(
+            torch, ms, flags, argv, counters)
+        c = system.coordinator
+        label = f"donate={flags} overlap={flags}"
+        seg_flags = [comps["donate"] for mid, comps
+                     in c.backend._components.items()
+                     if mid.startswith("segment:")]
+        if c.overlap is not flags or not seg_flags or any(
+                f is not flags for f in seg_flags):
+            raise AssertionError(f"trace {label}: the flags did not reach the "
+                                 f"coordinator ({c.overlap}) and the "
+                                 f"segments ({seg_flags})")
+        want_flash, run_shapes = expected_flash(c.dispatch_log, cfg)
+        flash_shapes |= run_shapes
+        flash_launches.append(launches["flash_attention"])
+        others = sum(n for name, n in launches.items()
+                     if name != "flash_attention")
+        if launches["flash_attention"] != want_flash or others:
+            raise AssertionError(f"trace {label}: launches {launches}, "
+                                 f"flash_attention expected {want_flash}")
+        errs_t = check_invariants(c)
+        if errs_t:
+            raise AssertionError(f"trace {label}: invariants {errs_t}")
+        if not c.finished:
+            raise AssertionError(f"trace {label}: no request finished")
+        images = {}
+        for req in c.finished:
+            img = image_of(system, req)
+            check_image(torch, img, card, f"trace {req.workflow_name} "
+                                          f"request {req.rid}")
+            images[req.rid] = img
+        lats = sorted(r.latency for r in c.finished)
+        by_model = {}
+        for _, mid, rids, pred, meas in disp:
+            by_model.setdefault(mid, []).append((pred, meas))
+        summary = {
+            "flags": label, "wall_s": wall, "makespan_s": c.now,
+            "done": len(c.finished), "rejected": len(c.rejected),
+            "slo_attainment": system.slo_attainment(),
+            "mean_latency_s": system.mean_latency(),
+            "p50_latency_s": quantile(lats, 0.5),
+            "p99_latency_s": c.p99_latency(),
+            "dispatches": len(c.dispatch_log),
+            "n_overlap_dispatches": c.n_overlap_dispatches,
+            "overlap_hidden_seconds": c.overlap_hidden_seconds,
+            "peak_memory_gib": peak, "launches": launches,
+            "per_model": {mid: {
+                "dispatches": len(v),
+                "predicted_s_mean": statistics.mean(p for p, _ in v),
+                "measured_s_mean": statistics.mean(m for _, m in v),
+                "measured_over_predicted": (sum(m for _, m in v)
+                                            / sum(p for p, _ in v))}
+                for mid, v in by_model.items()},
+            "requests": [{"rid": r.rid, "workflow": r.workflow_name,
+                          "arrival": r.arrival, "status": r.status,
+                          "latency": r.latency}
+                         for r in sorted(c.finished + c.rejected,
+                                         key=lambda r: r.rid)],
+            "timeline": [(round(s, 4), mid, rids, round(m, 4))
+                         for s, mid, rids, _, m in disp],
+        }
+        log(f"[trace] {json.dumps(summary)}  [{card}]")
+        log(f"[trace] {label}: wall {wall:.3f} s, coordinator makespan "
+            f"{c.now:.3f} s, {len(c.finished)} done, {len(c.rejected)} "
+            f"rejected, SLO attainment {summary['slo_attainment']:.3f}, "
+            f"latency mean {summary['mean_latency_s']:.3f} s p50 "
+            f"{summary['p50_latency_s']:.3f} s p99 {c.p99_latency():.3f} s, "
+            f"{len(c.dispatch_log)} dispatches, overlap dispatches "
+            f"{c.n_overlap_dispatches} hiding {c.overlap_hidden_seconds:.4f} "
+            f"s, peak memory {peak:.2f} GiB, flash_attention launches "
+            f"{launches['flash_attention']} (expected {want_flash})  [{card}]")
+        for mid, row in summary["per_model"].items():
+            log(f"[trace] {label}: {mid}: {row['dispatches']} dispatches, "
+                f"predicted ({GPU_H800.name} profile) "
+                f"{row['predicted_s_mean']:.4f} s, measured "
+                f"{row['measured_s_mean']:.4f} s a dispatch (its first "
+                f"dispatch includes the load)  [{card}]")
+        if flags and c.n_overlap_dispatches == 0:
+            log("[trace] no decode rode a segment window: on one executor "
+                "each request's decode comes ahead of every later request's "
+                "segment in the scheduler's order (earlier arrival), so no "
+                "decode became ready while a segment held the executor")
+        runs[flags] = (c, images, [(mid, rids) for _, mid, rids, _, _ in disp])
+        del system, c, images
+        gc.collect()
+        torch.cuda.empty_cache()
+    (c_off, img_off, batches_off), (c_on, img_on, batches_on) = (
+        runs[False], runs[True])
+    # the batches follow the measured timeline, and a GEMM's bits may
+    # depend on its row count: say whether both runs batched alike
+    same_batches = batches_off == batches_on
+    done_off = sorted((r.rid, r.workflow_name) for r in c_off.finished)
+    done_on = sorted((r.rid, r.workflow_name) for r in c_on.finished)
+    if done_off != done_on:
+        raise AssertionError(f"trace: the runs finished different requests: "
+                             f"{done_off} vs {done_on} (same batches: "
+                             f"{same_batches})")
+    for rid, img in img_off.items():
+        if not torch.equal(img, img_on[rid]):
+            raise AssertionError(f"trace request {rid}: flags off vs on not "
+                                 f"bit-identical, rel err "
+                                 f"{rel(img_on[rid], img)} (same batches: "
+                                 f"{same_batches})")
+    log(f"[trace] flags off vs on: the same {len(done_off)} requests "
+        f"finished, every image bit-identical; the same batches in both "
+        f"runs: {same_batches}")
+    return flash_shapes, flash_launches
 
 
 def main() -> None:
@@ -1776,6 +1984,28 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ------------- 7l. a trace through the serving launcher, S1 at full width
+    trace_shapes, trace_flash = trace_phase(
+        torch, family, cn_weights, card,
+        (fa.flash_attention, lk.lora_matmul, lk.lora_matmul_grouped,
+         qk.quant_matmul, qk.quantize_rows, rk.rglru_scan))
+    del cn_weights
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---------- 5l. flash attention at the trace's own shapes
+    trace_timings = []
+    for shape in sorted(trace_shapes - set(shapes) - ml_flash_shapes
+                        - cn_flash_shapes,
+                        key=lambda s: -s[0] * s[1] * s[2] * s[3]):
+        err = check_attention(torch, fa, shape, False, None, f32, 2e-5)
+        errs.append(err)
+        log(f"[kernel] trace path {shape} float32: max|err| {err:.2e} "
+            f"<= 2e-05")
+        trace_timings.append({**time_attention(torch, fa, shape, f32),
+                              "path": "S1 trace (phase 7l)"})
+        log_attention_time(trace_timings[-1], shape, card)
+
     # the headline is the largest shape each path really launched
     served = max(path_shapes, key=lambda s: s[0] * s[1] * s[2] * s[3])
     main = timings[shapes.index(served)]
@@ -1799,9 +2029,12 @@ def main() -> None:
               "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/kernel.py:109", launches,
               max(errs), main,
-              [t for t in timings if t is not main] + ml_timings + cn_timings,
+              [t for t in timings if t is not main] + ml_timings + cn_timings
+              + trace_timings,
               {"basic": launches, "basic int8": q_flash, "lora": ml_flash,
-               "controlnet": cn_flash, "controlnet int8": nq_flash}),
+               "controlnet": cn_flash, "controlnet int8": nq_flash,
+               "S1 trace, flags off": trace_flash[0],
+               "S1 trace, flags on": trace_flash[1]}),
         entry("lora_matmul_grouped", lora_src,
               "src/repro/kernels/lora_matmul/kernel.py:172", ml_grouped,
               lora_path_err["grouped"], lora_times[lead_key],

@@ -56,3 +56,4 @@ from repro_torch.core.types import (
     WorkflowTypeError,
 )
 from repro_torch.core.workflow import Workflow, WorkflowContext, WorkflowNode, WorkflowTemplate, compose
+from repro_torch.core.group import CoordinatorGroup, cluster_workflows

@@ -73,9 +73,6 @@ _seq = itertools.count()
 # segment's remaining window and the timeline pays only the EXPOSED
 # remainder (``LatencyProfile.exposed_cost``).  Read at Coordinator
 # construction, like the quant/donate flags are read at load time.
-# The port has not ported overlap yet (no model is ``overlappable`` and
-# the async dispatch is untested on the card): a Coordinator asked for
-# it raises.
 
 _overlap_enabled: bool = os.environ.get(
     "REPRO_OVERLAP", "0").lower() not in ("0", "false", "off", "")
@@ -339,10 +336,6 @@ class Coordinator:
         # records off the single-slot ``_open_batch`` so a decode span
         # never clobbers the segment span it overlaps.
         self.overlap = overlap_enabled() if overlap is None else bool(overlap)
-        if self.overlap:
-            raise NotImplementedError(
-                "pipeline overlap (REPRO_OVERLAP) is not ported to "
-                "repro_torch yet; unset it")
         self.n_overlap_dispatches = 0
         self.overlap_hidden_seconds = 0.0
         self._seg_busy: Dict[int, Tuple[float, str]] = {}

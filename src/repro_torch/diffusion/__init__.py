@@ -1,6 +1,7 @@
 """Diffusion substrate, PyTorch port: MMDiT backbone, encoders, sampling,
 LoRA adapters, servable model wrappers and the Table-2 workflow builders."""
 
+from repro_torch.diffusion.cache import ApproxCache
 from repro_torch.diffusion.config import (
     FAMILIES,
     FLUX_DEV,

@@ -255,6 +255,11 @@ def mmdit_apply(
     return unpatchify(out, cfg.patch, cfg.latent_size, cfg.latent_channels)
 
 
+def seq_shard_divisor(cfg: DiTConfig, k: int) -> bool:
+    """Can the latent's patch-row grid split evenly across k devices?"""
+    return (cfg.latent_size // cfg.patch) % k == 0
+
+
 # -------------------------------------------------------------- ControlNet
 
 def init_controlnet(gen: torch.Generator, cfg: DiTConfig,

@@ -67,8 +67,14 @@ from repro_torch.diffusion.mmdit import (
     init_mmdit,
     mmdit_apply,
     quantize_mmdit_params,
+    seq_shard_divisor,
 )
-from repro_torch.diffusion.sampler import denoise_step, fused_cfg_velocity
+from repro_torch.diffusion.sampler import (
+    denoise_step,
+    denoise_step_,
+    donate_buffers_enabled,
+    fused_cfg_velocity,
+)
 from repro_torch.weights import to_device
 
 _TOY_VOCAB = 512
@@ -564,6 +570,12 @@ class ControlNet(Model):
 
 
 class VAEDecode(Model):
+    # decode of batch N may ride an executor still running batch N+1's
+    # denoise segment (REPRO_OVERLAP): stateless and without patches.  The
+    # coordinator prices its exposed remainder; the executor still runs
+    # and synchronises it on the one stream, after the segment
+    overlappable = True
+
     def __init__(self, family: DiffusionFamily,
                  weights: Optional[Dict[str, Any]] = None) -> None:
         self.family = family
@@ -769,8 +781,11 @@ class DenoiseSegment(Model):
         return self.backbone.patches
 
     def load(self, device: Any = None) -> Dict[str, Any]:
+        # ``donate`` (REPRO_DONATE, read at load): ``_run`` updates the
+        # stacked carry in place
         return {"backbone": self.backbone.load(device),
-                "cns": [cn.load(device) for cn in self.cns]}
+                "cns": [cn.load(device) for cn in self.cns],
+                "donate": donate_buffers_enabled()}
 
     def fold_patches(
         self,
@@ -797,7 +812,11 @@ class DenoiseSegment(Model):
              lora: Optional[Tuple] = None) -> torch.Tensor:
         """``steps`` Euler steps of the stacked batch, each the ControlNets'
         residuals at the step's time, one guided backbone forward
-        (per-row adapters when ``lora`` is given) and the shared update."""
+        (per-row adapters when ``lora`` is given) and the shared update.
+
+        ``lat`` must be a tensor the segment owns (``_stack``'s copy): under
+        ``comps["donate"]`` every step updates it in place."""
+        step = denoise_step_ if comps.get("donate") else denoise_step
         dev = comps["backbone"]["device"]
         cols = {"t_mid": [], "t_cur": [], "t_next": []}
         gs = []
@@ -817,11 +836,24 @@ class DenoiseSegment(Model):
                 res = r if res is None else res + r
             v = self.backbone.velocity(comps["backbone"], lat, t, emb, res,
                                        guidance, lora=lora)
-            lat = denoise_step(lat, v, tc, tn)
+            lat = step(lat, v, tc, tn)
         return lat
 
     def execute(self, model_components: Dict[str, Any], **kw: Any) -> Dict[str, Any]:
         return self.execute_batch(model_components, [kw])[0]
+
+    def clamp_parallelism(self, batch_size: int, k: int) -> int:
+        """Largest k' <= k with a sharded mode in the JAX package: the
+        folded CFG rows divide k' (row DP), or the patch grid divides k'
+        (sequence sharding).  The scheduler consults it on every plane, so
+        the port's dispatches (and the simulator's numbers) follow the JAX
+        package's; ``LocalBackend`` runs a batch of any k' on its one
+        device."""
+        rows = batch_size * (2 if self.family.uses_cfg else 1)
+        for j in range(k, 0, -1):
+            if rows % j == 0 or seq_shard_divisor(self.family.toy, j):
+                return j
+        return 1
 
     def _segment_steps(self, batch_kwargs: List[Dict[str, Any]]
                        ) -> Optional[int]:
@@ -840,7 +872,9 @@ class DenoiseSegment(Model):
     def _stack(self, dev: torch.device,
                batch_kwargs: List[Dict[str, Any]]) -> Tuple:
         """(lat, emb, cond, sizes) on ``dev``; ``cond`` is None without
-        ControlNets."""
+        ControlNets.  ``torch.cat`` always copies, even one request's
+        tensor already on ``dev``: ``lat`` is the segment's own carry, so
+        a donated run never writes a datastore, caller or cache tensor."""
         def cat(name):
             return torch.cat([kw[name].to(dev) for kw in batch_kwargs], dim=0)
 

@@ -5,6 +5,8 @@
   ONE update routine both the per-step ``DenoiseStep`` node and the fused
   ``DenoiseSegment`` call, so fused == unfused bit for bit inside the port
   (the JAX package gets the same guarantee by jitting the step);
+  :func:`denoise_step_` is its in-place form for a donated carry
+  (``REPRO_DONATE``), with the same bits;
 * :func:`cfg_combine` / :func:`fused_cfg_velocity` — classifier-free
   guidance [26], one-pass (cond and null rows stacked on the batch axis).
 
@@ -13,9 +15,39 @@ Latent parallelism over a device mesh is not ported yet.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, Dict, Optional
 
 import torch
+
+
+# ----------------------------------------------------- donated latent buffers
+#
+# ``REPRO_DONATE=1`` makes the fused segment update its latent carry in
+# place (:func:`denoise_step_`) instead of allocating ``lat + dt * v``
+# every step.  Donation invariant: only a tensor the segment owns is
+# updated in place.  ``DenoiseSegment`` stacks its inputs with
+# ``torch.cat``, which always copies, so the datastore's value, a caller's
+# tensor or an ``ApproxCache`` entry is never written; the per-step
+# ``DenoiseStep`` node reads an engine-held value and stays out of place.
+# Read at load time (``DenoiseSegment.load`` records it in the
+# components), like the quant flag.
+
+_donate_enabled: bool = os.environ.get(
+    "REPRO_DONATE", "0").lower() not in ("0", "false", "off", "")
+
+
+def set_donate_buffers(enabled: bool) -> bool:
+    """Toggle latent-buffer donation; returns the previous value.  Takes
+    effect on the next model load."""
+    global _donate_enabled
+    prev = _donate_enabled
+    _donate_enabled = bool(enabled)
+    return prev
+
+
+def donate_buffers_enabled() -> bool:
+    return _donate_enabled
 
 
 def flow_schedule(num_steps: int, shift: float = 1.0) -> torch.Tensor:
@@ -26,15 +58,27 @@ def flow_schedule(num_steps: int, shift: float = 1.0) -> torch.Tensor:
     return t
 
 
+def _step_size(latents: torch.Tensor, t_cur: torch.Tensor,
+               t_next: torch.Tensor) -> torch.Tensor:
+    dt = (t_next - t_cur).to(latents.dtype)
+    return dt.reshape((latents.shape[0],) + (1,) * (latents.dim() - 1))
+
+
 def denoise_step(latents: torch.Tensor, velocity: torch.Tensor,
                  t_cur: torch.Tensor, t_next: torch.Tensor) -> torch.Tensor:
     """Euler step of dx/dt = v: x_{t_next} = x + (t_next - t_cur) * v.
 
     ``t_cur``/``t_next`` are f32 ``[B]`` vectors (one time per latent
     row); the step size is taken in f32, then in the latents' dtype."""
-    dt = (t_next - t_cur).to(latents.dtype)
-    dt = dt.reshape((latents.shape[0],) + (1,) * (latents.dim() - 1))
-    return latents + dt * velocity
+    return latents + _step_size(latents, t_cur, t_next) * velocity
+
+
+def denoise_step_(latents: torch.Tensor, velocity: torch.Tensor,
+                  t_cur: torch.Tensor, t_next: torch.Tensor) -> torch.Tensor:
+    """:func:`denoise_step` in place: ``latents`` (a carry the caller owns)
+    becomes the result and is returned.  The same product ``dt * v`` is
+    rounded, then added, so the bits equal the out-of-place step's."""
+    return latents.add_(_step_size(latents, t_cur, t_next) * velocity)
 
 
 def cfg_combine(v_uncond: torch.Tensor, v_cond: torch.Tensor,

@@ -484,3 +484,38 @@ def test_controlnet_workflow_on_the_card_matches_cpu(card, n_cns):
             assert flash_attention.launches > before
     assert images["cuda"].device.type == "cuda"
     assert _rel(images["cuda"], images["cpu"]) < 1e-4
+
+
+# --------------------------------------------------------------------------
+# the serving launcher's local plane on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_launcher_local_plane_flags_bitexact(card):
+    """The launcher's local plane (the first 8 requests of an S1 trace, 3
+    steps, one executor) at the toy size on the card, once with
+    ``REPRO_DONATE`` and ``REPRO_OVERLAP`` off and once with both on: the
+    same requests finish, with bit-identical images."""
+    from repro_torch.core.runtime import set_overlap
+    from repro_torch.diffusion.sampler import set_donate_buffers
+    from repro_torch.launch.serve import parse_args, serve
+    from repro_torch.sim import check_invariants
+
+    images = {}
+    for flags in (False, True):
+        prev = (set_donate_buffers(flags), set_overlap(flags))
+        try:
+            system = serve(parse_args(["--plane", "local", "--executors", "1",
+                                       "--device", "cuda"]))
+        finally:
+            set_donate_buffers(prev[0])
+            set_overlap(prev[1])
+        c = system.coordinator
+        assert c.overlap is flags and check_invariants(c) == []
+        assert len(c.finished) + len(c.rejected) == 8 and c.finished
+        images[flags] = {r.rid: c.engine.value_of(
+            r.ref_key(r.graph.outputs["image"])) for r in c.finished}
+    assert sorted(images[True]) == sorted(images[False])
+    for rid, img in images[False].items():
+        assert img.device.type == "cuda"
+        assert torch.equal(img, images[True][rid]), rid

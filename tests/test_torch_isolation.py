@@ -54,6 +54,18 @@ QUANT_MODULES = [
     "repro_torch.weights",
 ]
 
+# the serving launcher and the modules it and the simulation plane need:
+# traces, the monolithic baseline, coordinator groups, the approximate
+# cache and the back-compat shim
+LAUNCH_MODULES = [
+    "repro_torch.launch.serve",
+    "repro_torch.sim.trace",
+    "repro_torch.sim.monolithic",
+    "repro_torch.core.group",
+    "repro_torch.diffusion.cache",
+    "repro_torch.diffusion.serving",
+]
+
 _PROBE = """
 import importlib, sys
 
@@ -77,8 +89,9 @@ def _src():
         os.path.abspath(__file__))), "src")
 
 
-@pytest.mark.parametrize("modules", [MODULES, LORA_MODULES, QUANT_MODULES],
-                         ids=["main-path", "lora", "quant-rglru"])
+@pytest.mark.parametrize("modules", [MODULES, LORA_MODULES, QUANT_MODULES,
+                                     LAUNCH_MODULES],
+                         ids=["main-path", "lora", "quant-rglru", "launch"])
 def test_port_imports_without_jax_or_repro(modules):
     env = dict(os.environ, PYTHONPATH=_src())
     out = subprocess.run([sys.executable, "-c", _PROBE, *modules], env=env,

@@ -137,12 +137,15 @@ def test_local_backend_without_cuda_raises():
 
 
 def test_overlap_is_refused_until_ported(monkeypatch):
-    assert not tdiff.ops.VAEDecode(tdiff.SD3).overlappable
-    with pytest.raises(NotImplementedError, match="REPRO_OVERLAP"):
-        tcore.ServingSystem(n_executors=1, overlap=True,
-                            backend=tcore.LocalBackend(device="cpu"))
+    """Overlap is ported: ``VAEDecode`` is overlappable, and a Coordinator
+    asked for overlap (by argument or by ``REPRO_OVERLAP``) is built with
+    it on instead of raising."""
+    assert tdiff.ops.VAEDecode(tdiff.SD3).overlappable
+    system = tcore.ServingSystem(n_executors=1, overlap=True,
+                                 backend=tcore.LocalBackend(device="cpu"))
+    assert system.coordinator.overlap
     from repro_torch.core import runtime
     monkeypatch.setattr(runtime, "_overlap_enabled", True)
-    with pytest.raises(NotImplementedError, match="REPRO_OVERLAP"):
-        tcore.ServingSystem(n_executors=1,
-                            backend=tcore.LocalBackend(device="cpu"))
+    system = tcore.ServingSystem(n_executors=1,
+                                 backend=tcore.LocalBackend(device="cpu"))
+    assert system.coordinator.overlap
