@@ -180,8 +180,41 @@ Phases (any failed check raises, and the script exits non-zero):
    5n did not cover (a text-encoder batch of three prompts), held against
    the plain version (f32 atol 2e-5) and timed as in phase 5.
 
+7p. The process plane (``ProcBackend(device="cuda")``: each executor a
+   worker process spawned with its own CUDA context on the card, behind the
+   CRC-framed transport), at full width, every worker drawing its weights
+   from the model ids.  The parent's kernel counts are set to 0 just before
+   each proc run and must still be 0 just after: the workers launch the
+   kernels, and the proof that they ran them is each proc image
+   bit-identical to an in-process kernel-route image whose batches were
+   the same (the phase prints whether they were; otherwise within
+   ``KERNEL_VS_PLAIN_REL``), and the worker pids among nvidia-smi's compute
+   processes where that list can be matched to this process's pids.
+   (a) Phase 4's two requests on ``PROC_EXECUTORS`` executors with
+   ``Scheduler(use_declared_max_batch=True, segment_chunk=PROC_CHUNK)``, in
+   process and then on the proc plane: ``check_invariants`` clean, every
+   reply applied, none fenced, staging hits.  (b) The first request alone
+   on a fresh proc system with ``FaultPlane(kill_every_execs=2,
+   max_kills=1)``: the worker dies right after its second segment RPC is
+   sent, is respawned and the request replays; the image against (a)'s.
+   (c) Phase 4b's three requests through one worker, twice: adapter
+   factors shipped 2 and hit 0, then shipped 2 and hit at least 2; a
+   multilora dispatch; images bit-identical to phase 4b's (the same
+   batches required).  (d) ``REPRO_QUANT=int8`` set before the system is
+   built (the workers inherit it) and the parent's quant mode int8 (its
+   prices): phase 4q's two requests through one worker, bit-identical to
+   phase 4q's images (the same batches required); the environment and the
+   mode are restored.  Printed per run: wall and the coordinator's
+   makespan, the RPC split (worker, transport and parent serialization
+   seconds as shares of the measured dispatch seconds), bytes out and
+   back, staging ships and hits, each worker's spawn seconds, the respawn
+   wall and a cold worker's first RPC of each model against its warm ones,
+   the device memory the workers hold (the card's use from
+   ``cudaMemGetInfo`` with them alive, less before, less the parent's own
+   growth) and ``nvidia-smi --query-compute-apps=pid,used_memory``.
+
 The phases run in the order 1, 2, 3, 4, 5, 6, 4q, 5q, 6q, 4b, 4c, 5b, 6b,
-5c, 4n, 5n, 4nq, 6n, 7l, 5l.  Before the last two lines, one JSON ``kernels`` line
+5c, 4n, 5n, 4nq, 6n, 7l, 5l, 7p.  Before the last two lines, one JSON ``kernels`` line
 lists every kernel, ``quantize_rows`` (which replaces plain code, not a
 Pallas kernel) among them: its ``launches`` are the count from its own
 path's run (the single-adapter LoRA kernel and ``rglru_scan`` have no
@@ -199,6 +232,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -296,6 +330,11 @@ TOY_QUANT_REL = {"int8": 2.5e-2, "fp8": 1e-4}
 SERVE_ARGS = ["--setting", "s1", "--plane", "local", "--executors", "1",
               "--rate", "1.0", "--duration", "120", "--cv", "2.0",
               "--slo-scale", "2.0"]
+# phase 7p: the process plane's executors for the basic and kill runs, each
+# a worker process with its own CUDA context and copy of the weights on the
+# one card; the segment chunk that splits a request's steps across RPCs
+PROC_EXECUTORS = 2
+PROC_CHUNK = 2
 # (B, T, D): tests/test_kernels.py's RG-LRU grid, then RecurrentGemma-2B's
 # width (D 2560) at two batch and sequence splits
 RGLRU_GRID = [(2, 128, 128), (1, 200, 96), (3, 64, 256), (2, 300, 50)]
@@ -853,10 +892,11 @@ def cn_system(family, cn_weights):
     return system
 
 
-def lora_system(ms, device, multilora=True):
+def lora_system(ms, device, multilora=True, backend=None):
     """The JAX package's multi-tenant serving setup (its test's
-    ``_build_system``) on one executor: sd3:basic and two LoRA tenants.
-    Returns the system and its adapter models by id."""
+    ``_build_system``) on one executor: sd3:basic and two LoRA tenants, on
+    ``backend`` (by default ``LocalBackend(device)``).  Returns the system
+    and its adapter models by id."""
     from repro_torch.core import (
         GraphCompiler,
         InlineTrivialPass,
@@ -869,7 +909,8 @@ def lora_system(ms, device, multilora=True):
     )
     from repro_torch.diffusion import make_basic_workflow, make_lora_workflow
 
-    system = ServingSystem(n_executors=1, backend=LocalBackend(device=device))
+    system = ServingSystem(n_executors=1,
+                           backend=backend or LocalBackend(device=device))
     # no AsyncLoRAPass: its fold-in point depends on measured seconds, so
     # the batch would not be deterministic with it
     system.registry = WorkflowRegistry(GraphCompiler(
@@ -1123,6 +1164,363 @@ def trace_phase(torch, family, cn_weights, card, counters, device="cuda"):
         f"finished, every image bit-identical; the same batches in both "
         f"runs: {same_batches}")
     return flash_shapes, flash_launches
+
+
+def batch_plan(dispatch_log, reqs) -> list:
+    """The batches a run formed for ``reqs``: each dispatch's model id and
+    the positions in ``reqs`` of the requests it carried.  Two runs with
+    equal plans computed every row in a batch of the same requests."""
+    pos = {r.rid: i for i, r in enumerate(reqs)}
+    return sorted({(d.model_id, tuple(sorted(pos[rn.request.rid]
+                                             for rn in d.nodes)))
+                   for d in dispatch_log
+                   if all(rn.request.rid in pos for rn in d.nodes)})
+
+
+def compute_apps() -> dict:
+    """pid -> MiB of device memory, for every process nvidia-smi lists on
+    the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    apps = {}
+    for line in out.stdout.strip().splitlines():
+        parts = [x.strip() for x in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            apps[int(parts[0])] = float(parts[1])
+    return apps
+
+
+def device_used_mib(torch) -> float:
+    """MiB in use on the card by every process (``cudaMemGetInfo``)."""
+    free, total = torch.cuda.mem_get_info()
+    return (total - free) / 2**20
+
+
+def check_proc_image(torch, img, family, what):
+    """A served image off the wire: a CPU tensor of the family's pixel
+    size, finite, in [-1, 1]."""
+    side = 8 * family.toy.latent_size
+    if (tuple(img.shape) != (1, side, side, 3) or img.device.type != "cpu"
+            or not bool(torch.isfinite(img).all())
+            or float(img.abs().max()) > 1.0):
+        raise AssertionError(f"proc image of {what} {tuple(img.shape)} "
+                             f"{img.device} out of spec")
+
+
+def hold_images(torch, got, want, same_plan, what):
+    """Each image bit-identical to ``want``'s when the runs batched alike,
+    else within ``KERNEL_VS_PLAIN_REL``; returns the largest relative
+    error."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        e = rel(g, w)
+        worst = max(worst, e)
+        if same_plan and not torch.equal(g, w):
+            raise AssertionError(f"{what} request {i}: the same batches but "
+                                 f"not bit-identical, rel err {e}")
+        if not e < KERNEL_VS_PLAIN_REL:
+            raise AssertionError(f"{what} request {i}: rel err {e}")
+    log(f"[proc] {what}: the same batches: {same_plan}; "
+        f"{'bit-identical' if same_plan else 'within 1e-3'}, largest rel err "
+        f"{worst:.3e}")
+    return worst
+
+
+def proc_report(label, system, wall, makespan, apps, workers_mib,
+                card) -> None:
+    """Phase 7p's printed metrics of one proc run: walls, the RPC split as
+    shares of the measured dispatch seconds, bytes, staging, spawns, the
+    device memory the workers held together (``workers_mib``) and
+    nvidia-smi's process list (``apps``, read while the workers lived)."""
+    c = system.coordinator
+    be = c.backend
+    measured = be.exec_seconds
+    share = (lambda x: x / measured) if measured else (lambda x: 0.0)
+    workers = {eid: {"pid": h.pid, "spawn_s": h.spawn_seconds}
+               for eid, h in sorted(be.workers.items())}
+    out = {"run": label, "wall_s": wall, "makespan_s": makespan,
+           "workers_device_mib": workers_mib, "nvidia_smi_apps_mib": apps,
+           "dispatch_s": measured, "execs": be.n_execs,
+           "ser_s": be.ser_seconds, "transport_s": be.transport_seconds,
+           "worker_s": be.worker_seconds,
+           "ser_share": share(be.ser_seconds),
+           "transport_share": share(be.transport_seconds),
+           "worker_share": share(be.worker_seconds),
+           "bytes_tx": be.bytes_tx, "bytes_rx": be.bytes_rx,
+           "bytes_shipped": be.bytes_shipped,
+           "datastore_ser_s": c.engine.ser_seconds,
+           "staging_ships": be.staging_ships, "staging_hits": be.staging_hits,
+           "adapter_ships": be.adapter_ships, "adapter_hits": be.adapter_hits,
+           "n_exec_replies": be.n_exec_replies,
+           "n_exec_applied": be.n_exec_applied, "n_fenced": be.n_fenced,
+           "spawns": be.supervisor.n_spawns,
+           "restart_s": be.restart_seconds, "workers": workers,
+           "parent_pid": os.getpid(),
+           "rpcs": [(mid, eid, round(w, 4), round(ld, 4), round(ex, 4))
+                    for mid, eid, w, ld, ex in be.rpc_log]}
+    log(f"[proc] {json.dumps(out)}  [{card}]")
+    log(f"[proc] {label}: wall {wall:.3f} s, coordinator makespan "
+        f"{makespan:.3f} s; since the system was built: {be.n_execs} RPCs "
+        f"over {measured:.3f} s measured: "
+        f"worker {share(be.worker_seconds):.2%}, transport "
+        f"{share(be.transport_seconds):.2%}, parent serialization "
+        f"{share(be.ser_seconds):.2%}; {be.bytes_tx / 2**20:.2f} MiB out, "
+        f"{be.bytes_rx / 2**20:.2f} MiB back; staging {be.staging_ships} "
+        f"ships {be.staging_hits} hits; spawns "
+        f"{ {eid: [round(x, 2) for x in w['spawn_s']] for eid, w in workers.items()} } s; "
+        f"the workers held {workers_mib:.0f} MiB of the card together  "
+        f"[{card}]")
+
+
+def cold_warm(rpc_log) -> dict:
+    """model id -> (the RPC walls of each worker's first RPC of it, the
+    mean wall of its later ones on the same workers), from a proc
+    backend's ``rpc_log``."""
+    seen, cold, warm = set(), {}, {}
+    for mid, eid, wall, _, _ in rpc_log:
+        if (mid, eid) in seen:
+            warm.setdefault(mid, []).append(wall)
+        else:
+            seen.add((mid, eid))
+            cold.setdefault(mid, []).append(round(wall, 4))
+    return {mid: (cold[mid], round(statistics.mean(warm[mid]), 4)
+                  if mid in warm else None) for mid in cold}
+
+
+def check_workers_on_card(system, apps) -> None:
+    """Every worker's pid among the card's compute processes, where
+    nvidia-smi's list can be matched to this process's pids at all."""
+    pids = {eid: h.pid for eid, h in system.coordinator.backend.workers.items()
+            if h.proc is not None and h.proc.is_alive()}
+    if os.getpid() in apps or any(p in apps for p in pids.values()):
+        missing = {eid: p for eid, p in pids.items() if p not in apps}
+        if missing:
+            raise AssertionError(f"workers {missing} hold no context on the "
+                                 f"card: nvidia-smi lists {sorted(apps)}")
+        log(f"[proc] worker pids {sorted(pids.values())} among the card's "
+            f"compute processes {sorted(apps)}")
+    else:
+        log(f"[proc] nvidia-smi's process list (pid: MiB) {apps} holds "
+            f"neither the parent ({os.getpid()}) nor a worker "
+            f"({sorted(pids.values())}): the pids cannot be matched here")
+
+
+def proc_phase(torch, family, card, counters, kept, device="cuda"):
+    """Phase 7p: the process plane at the family's width; the checks and
+    printed metrics of the docstring's 7p.  ``kept`` holds phase 4q's int8
+    and phase 4b's mixed-batch images (on the CPU) and batch plans."""
+    from repro_torch.core import (
+        FaultPlane,
+        LocalBackend,
+        ProcBackend,
+        Scheduler,
+        ServingSystem,
+    )
+    from repro_torch.diffusion import ModelSet, make_basic_workflow
+    from repro_torch.nn.layers import quant_mode, set_quant_mode
+    from repro_torch.sim import check_invariants
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def basic_system(backend, n_executors, chunk, faults=None):
+        system = ServingSystem(n_executors=n_executors, backend=backend,
+                               faults=faults)
+        if chunk:
+            system.coordinator.scheduler = Scheduler(
+                system.profiles, use_declared_max_batch=True,
+                segment_chunk=chunk)
+        system.register(make_basic_workflow("sd3", ModelSet(family)))
+        return system
+
+    def memory():
+        """(card MiB in use by every process, the parent's reserved MiB)."""
+        if device != "cuda":
+            return 0.0, 0.0
+        return device_used_mib(torch), torch.cuda.memory_reserved() / 2**20
+
+    def run(system, subs, label):
+        """Serve ``subs`` with the parent's counts set to 0 just before:
+        on the proc plane the parent launches no kernel.  Returns the
+        requests, their images, the wall and the card's process list, and
+        notes the MiB the workers hold: the card's use less ``base``'s,
+        less the parent's own growth."""
+        for c in counters:
+            c.launches = 0
+        v0 = system.coordinator.now
+        sync()
+        t0 = time.perf_counter()
+        reqs = serve(system, subs, STEPS)
+        sync()
+        wall = time.perf_counter() - t0
+        makespans[label] = system.coordinator.now - v0
+        apps = compute_apps() if device == "cuda" else {}
+        used, reserved = memory()
+        workers_mib[label] = (used - base[0]) - (reserved - base[1])
+        parent = {c.__name__: c.launches for c in counters if c.launches}
+        if parent:
+            raise AssertionError(f"{label}: the parent launched {parent}")
+        images = [image_of(system, r).cpu() for r in reqs]
+        for (name, _), img in zip(subs, images):
+            check_proc_image(torch, img, family, f"{label} {name}")
+        errs = check_invariants(system.coordinator)
+        if errs:
+            raise AssertionError(f"{label}: invariants {errs}")
+        return reqs, images, wall, apps
+
+    def check_rpcs(be, label):
+        if be.n_exec_replies != be.n_exec_applied + be.n_fenced:
+            raise AssertionError(f"{label}: {be.n_exec_replies} replies, "
+                                 f"{be.n_exec_applied} applied, "
+                                 f"{be.n_fenced} fenced")
+
+    subs = [("sd3:basic", inp) for inp in REQUESTS]
+    makespans, workers_mib = {}, {}
+
+    # (a) basic: in-process, then proc, on the same executors and chunks
+    local = basic_system(LocalBackend(device=device), PROC_EXECUTORS,
+                         PROC_CHUNK)
+    sync()
+    t0 = time.perf_counter()
+    local_reqs = serve(local, subs, STEPS)
+    sync()
+    local_wall = time.perf_counter() - t0
+    local_imgs = [image_of(local, r).cpu() for r in local_reqs]
+    local_plan = batch_plan(local.coordinator.dispatch_log, local_reqs)
+    log(f"[proc] (a) in-process: {PROC_EXECUTORS} executors of one "
+        f"LocalBackend, segment chunk {PROC_CHUNK}: wall {local_wall:.3f} s "
+        f"(weights drawn included), makespan {local.coordinator.now:.3f} s; "
+        f"batches {local_plan}  [{card}]")
+    del local, local_reqs
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    base = memory()
+    system = basic_system(ProcBackend(device=device), PROC_EXECUTORS,
+                          PROC_CHUNK)
+    with system:
+        reqs, a_imgs, wall, apps = run(system, subs, "(a) proc")
+        be = system.coordinator.backend
+        check_rpcs(be, "(a)")
+        if be.n_fenced or not be.staging_hits or be._components:
+            raise AssertionError(f"(a): fenced {be.n_fenced}, staging hits "
+                                 f"{be.staging_hits}, parent components "
+                                 f"{list(be._components)}")
+        a_plan = batch_plan(system.coordinator.dispatch_log, reqs)
+        a_rpcs = list(be.rpc_log)
+        log(f"[proc] (a) proc batches {a_plan}")
+        hold_images(torch, a_imgs, local_imgs, a_plan == local_plan,
+                    "(a) proc vs in-process")
+        proc_report("(a) basic", system, wall, makespans["(a) proc"],
+                    apps, workers_mib["(a) proc"], card)
+        check_workers_on_card(system, apps)
+
+    # (b) the first request alone, with a SIGKILL right after its second
+    # segment RPC's frame is sent: a lone request's RPCs are the text
+    # encoder, then the segment chunks, then the VAE
+    kill_at = 2
+    faults = FaultPlane(seed=0, kill_every_execs=kill_at, max_kills=1)
+    base = memory()
+    system = basic_system(ProcBackend(device=device), PROC_EXECUTORS,
+                          PROC_CHUNK, faults=faults)
+    with system:
+        reqs, b_imgs, wall, apps = run(system, subs[:1], "(b) kill")
+        c = system.coordinator
+        be = c.backend
+        check_rpcs(be, "(b)")
+        killed, victim = be.exec_log[kill_at]
+        if (faults.n_kills != 1 or c.n_worker_deaths < 1
+                or be.supervisor.n_spawns < 3 or not be.restart_seconds > 0
+                or not killed.startswith("segment:")):
+            raise AssertionError(
+                f"(b): kills {faults.n_kills} (RPC {kill_at}: {killed}), "
+                f"deaths {c.n_worker_deaths}, spawns "
+                f"{be.supervisor.n_spawns}, restart {be.restart_seconds} s")
+        b_plan = batch_plan(c.dispatch_log, reqs)
+        alone_in_a = [(m, rs) for m, rs in a_plan if 0 in rs]
+        log(f"[proc] (b) batches {b_plan}; the request's in (a) {alone_in_a}")
+        hold_images(torch, b_imgs, a_imgs[:1], b_plan == alone_in_a,
+                    "(b) killed mid-segment vs (a) proc")
+        proc_report("(b) kill", system, wall, makespans["(b) kill"],
+                    apps, workers_mib["(b) kill"], card)
+        # every RPC before the killed one was applied, so the log's entries
+        # from ``kill_at`` on came after the respawn
+        after = [(mid, round(w, 4)) for mid, eid, w, _, _
+                 in be.rpc_log[kill_at:] if eid == victim]
+        log(f"[proc] (b) worker {victim} killed at RPC {kill_at}; respawn "
+            f"wall {be.restart_seconds:.3f} s (process start, torch import, "
+            f"CUDA context; no nvcc); the respawned worker then served "
+            f"{after}; a cold worker's first RPC of a model against its "
+            f"warm ones (weights drawn on the card, libraries loaded, "
+            f"modules imported), RPC wall s: {cold_warm(a_rpcs)}  [{card}]")
+
+    # (c) two LoRA tenants and a basic request through one worker, twice
+    base = memory()
+    system, _ = lora_system(ModelSet(family), device,
+                            backend=ProcBackend(device=device))
+    with system:
+        be = system.coordinator.backend
+        reqs, c_imgs, wall, apps = run(system, MIXED, "(c) lora wave 1")
+        if (be.adapter_ships, be.adapter_hits) != (2, 0):
+            raise AssertionError(f"(c) wave 1: adapters shipped "
+                                 f"{be.adapter_ships}, hit {be.adapter_hits}")
+        c_plan = batch_plan(system.coordinator.dispatch_log, reqs)
+        if not any(d.multilora for d in system.coordinator.dispatch_log):
+            raise AssertionError("(c): no multilora dispatch")
+        log(f"[proc] (c) batches {c_plan} (phase 4b: {kept['lora'][1]})")
+        if c_plan != kept["lora"][1]:
+            raise AssertionError("(c): other batches than phase 4b's")
+        hold_images(torch, c_imgs, kept["lora"][0], True,
+                    "(c) mixed batch on one worker vs phase 4b in-process")
+        proc_report("(c) lora wave 1", system, wall,
+                    makespans["(c) lora wave 1"], apps,
+                    workers_mib["(c) lora wave 1"], card)
+        reqs2, c2_imgs, wall2, apps2 = run(system, MIXED, "(c) lora wave 2")
+        if be.adapter_ships != 2 or be.adapter_hits < 2:
+            raise AssertionError(f"(c) wave 2: adapters shipped "
+                                 f"{be.adapter_ships}, hit {be.adapter_hits}")
+        hold_images(torch, c2_imgs, c_imgs,
+                    batch_plan(system.coordinator.dispatch_log, reqs2)
+                    == c_plan, "(c) wave 2 vs wave 1")
+        check_rpcs(be, "(c)")
+        log(f"[proc] (c) the worker's first RPC of each model (wave 1) "
+            f"against its wave-2 RPCs, wall s: {cold_warm(be.rpc_log)}  "
+            f"[{card}]")
+        proc_report("(c) lora wave 2", system, wall2,
+                    makespans["(c) lora wave 2"], apps2,
+                    workers_mib["(c) lora wave 2"], card)
+        check_workers_on_card(system, apps2)
+
+    # (d) int8: the workers inherit REPRO_QUANT at spawn; the parent prices
+    # the int8 forwards as phase 4q did
+    prev_env = os.environ.get("REPRO_QUANT")
+    os.environ["REPRO_QUANT"] = "int8"
+    prev_mode = set_quant_mode("int8")
+    try:
+        base = memory()
+        system = basic_system(ProcBackend(device=device), 1, None)
+        with system:
+            reqs, d_imgs, wall, apps = run(system, subs, "(d) int8")
+            check_rpcs(system.coordinator.backend, "(d)")
+            d_plan = batch_plan(system.coordinator.dispatch_log, reqs)
+            log(f"[proc] (d) batches {d_plan} (phase 4q: {kept['int8'][1]})")
+            if d_plan != kept["int8"][1]:
+                raise AssertionError("(d): other batches than phase 4q's")
+            hold_images(torch, d_imgs, kept["int8"][0], True,
+                        "(d) int8 on one worker vs phase 4q in-process")
+            proc_report("(d) int8", system, wall, makespans["(d) int8"],
+                        apps, workers_mib["(d) int8"], card)
+    finally:
+        set_quant_mode(prev_mode)
+        if prev_env is None:
+            os.environ.pop("REPRO_QUANT", None)
+        else:
+            os.environ["REPRO_QUANT"] = prev_env
+    if quant_mode() != prev_mode:
+        raise AssertionError("the quant mode was not restored")
 
 
 def main() -> None:
@@ -1540,6 +1938,8 @@ def main() -> None:
                 f"{req.latency:.3f} s on the coordinator's measured timeline; "
                 f"int8 vs fp32 image rel err {e:.3e} < {INT8_VS_FP32_REL}  "
                 f"[{card}]")
+        # phase 7p serves these requests again on the process plane
+        kept_int8 = ([img.cpu() for img in q_images], batch_plan(q_log, reqs))
         log(f"[path-int8] 2 full-width sd3:basic requests under int8, {STEPS} "
             f"steps, wall {q_wall_s:.2f} s (weights drawn and quantized on the "
             f"card included), peak memory {q_peak_gib:.2f} GiB, quant_matmul "
@@ -1656,6 +2056,9 @@ def main() -> None:
         log(f"[path-lora] {name} request {req.rid} done: latency "
             f"{req.latency:.3f} s on the coordinator's measured timeline; "
             f"range [{float(img.min()):.3f}, {float(img.max()):.3f}]  [{card}]")
+    # phase 7p serves this batch again on the process plane
+    kept_lora = ([ml_images[name].cpu() for name, _ in MIXED],
+                 batch_plan(log_ml, reqs))
     ab = float((ml_images["sd3:lora:tenantA"]
                 - ml_images["sd3:lora:tenantB"]).abs().max())
     if not ab > 1e-6:
@@ -1985,10 +2388,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ------------- 7l. a trace through the serving launcher, S1 at full width
-    trace_shapes, trace_flash = trace_phase(
-        torch, family, cn_weights, card,
-        (fa.flash_attention, lk.lora_matmul, lk.lora_matmul_grouped,
-         qk.quant_matmul, qk.quantize_rows, rk.rglru_scan))
+    counters = (fa.flash_attention, lk.lora_matmul, lk.lora_matmul_grouped,
+                qk.quant_matmul, qk.quantize_rows, rk.rglru_scan)
+    trace_shapes, trace_flash = trace_phase(torch, family, cn_weights, card,
+                                            counters)
     del cn_weights
     gc.collect()
     torch.cuda.empty_cache()
@@ -2005,6 +2408,13 @@ def main() -> None:
         trace_timings.append({**time_attention(torch, fa, shape, f32),
                               "path": "S1 trace (phase 7l)"})
         log_attention_time(trace_timings[-1], shape, card)
+
+    # ---------- 7p. the process plane at full width
+    proc_phase(torch, family, card, counters,
+               {"int8": kept_int8, "lora": kept_lora})
+    del kept_int8, kept_lora
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # the headline is the largest shape each path really launched
     served = max(path_shapes, key=lambda s: s[0] * s[1] * s[2] * s[3])

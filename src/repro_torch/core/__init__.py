@@ -1,11 +1,11 @@
 """LegoDiffusion core: micro-serving of diffusion workflows, PyTorch port.
 
-Public surface (the single-device executable plane; the process and
-sharded planes are not ported yet):
+Public surface (the single-device and process-isolated executable
+planes; the sharded plane is not ported yet):
 
 * DSL      -- Model, Workflow, compose
 * Compiler -- GraphCompiler, optimization passes
-* Runtime  -- Coordinator, ServingSystem, LocalBackend
+* Runtime  -- Coordinator, ServingSystem, LocalBackend, ProcBackend
 * Policy   -- Scheduler, AdmissionController, Autoscaler
 """
 
@@ -36,6 +36,7 @@ from repro_torch.core.profiles import GPU_H800, TPU_V5E, HardwareSpec, LatencyPr
 from repro_torch.core.registry import ServingSystem, WorkflowRegistry
 from repro_torch.core.runtime import Coordinator, Request, RequestNode
 from repro_torch.core.scheduler import ScheduledBatch, Scheduler
+from repro_torch.core.supervisor import ProcBackend, ProcConfig, Supervisor, processes_available
 from repro_torch.core.telemetry import (
     FoldCacheEviction,
     MetricsRegistry,
@@ -46,7 +47,13 @@ from repro_torch.core.telemetry import (
     validate_chrome_trace,
 )
 from repro_torch.core.tracing import COORDINATOR_PID, NULL_TRACER, NullTracer, Tracer, make_tracer
-from repro_torch.core.transport import StagedInput, WorkerDied
+from repro_torch.core.transport import (
+    ChecksumError,
+    FrameChannel,
+    StagedInput,
+    TransportError,
+    WorkerDied,
+)
 from repro_torch.core.types import (
     DataRef,
     Image,

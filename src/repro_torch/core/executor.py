@@ -26,6 +26,7 @@ import torch
 from repro_torch.core.model import Model
 from repro_torch.core.profiles import ProfileStore
 from repro_torch.core.telemetry import FoldCacheEviction, default_registry
+from repro_torch.weights import to_device
 
 # Lifecycle states (autoscaler-managed; a fixed fleet stays SERVING forever):
 #
@@ -341,10 +342,14 @@ class AdapterPool:
             self.evictions += 1
 
     def seed(self, patch_id: str, comps: Dict[str, Any]) -> None:
-        """Insert pre-decoded components (proc-plane staging path)."""
+        """Insert pre-decoded components (proc-plane staging path) on the
+        pool's device: a worker decodes them off the wire as CPU
+        tensors."""
         if patch_id in self._entries:
             self._entries.move_to_end(patch_id)
             return
+        if self.device is not None:
+            comps = to_device(comps, self.device)
         self._insert(patch_id, comps)
 
     def get(self, patch: Model) -> Tuple[Dict[str, Any], float]:
@@ -390,7 +395,7 @@ class LocalBackend:
     """
 
     # proc plane span context (set by the coordinator around an exec RPC
-    # when tracing is on; the process plane is not ported yet)
+    # when tracing is on; see repro_torch.core.supervisor.ProcBackend)
     trace_ctx: Optional[Dict[str, Any]] = None
 
     def __init__(self, device: Union[str, torch.device] = "cuda",

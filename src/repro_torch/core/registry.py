@@ -80,8 +80,10 @@ class ServingSystem:
         ``replicate_segments`` turns on replicate-on-commit for fused
         denoise-segment state.
 
-        ``backend="proc"`` (the process-isolated executor plane) is not
-        ported yet and raises.
+        ``backend="proc"`` builds the process-isolated executor plane
+        (each executor a separate OS process behind the frame transport,
+        on the card; see :mod:`repro_torch.core.supervisor`) — remember to
+        :meth:`close` the system, or use it as a context manager.
 
         Telemetry: ``tracer`` forces a specific span tracer (default:
         ``REPRO_TELEMETRY`` decides between a recording
@@ -89,9 +91,9 @@ class ServingSystem:
         ``metrics`` overrides the process-wide default
         :class:`~repro_torch.core.telemetry.MetricsRegistry`."""
         if backend == "proc":
-            raise NotImplementedError(
-                "backend='proc': the process-isolated executor plane is "
-                "not ported yet")
+            from repro_torch.core.supervisor import ProcBackend
+
+            backend = ProcBackend()
         self.profiles = ProfileStore(hw)
         passes = default_passes()
         if extra_passes:

@@ -519,3 +519,82 @@ def test_launcher_local_plane_flags_bitexact(card):
     for rid, img in images[False].items():
         assert img.device.type == "cuda"
         assert torch.equal(img, images[True][rid]), rid
+
+
+# --------------------------------------------------------------------------
+# the process plane on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float8_e4m3fn, torch.int8])
+def test_to_portable_takes_card_tensors_to_the_cpu(card, dtype):
+    """A CUDA tensor leaves ``to_portable`` (and the wire) as a CPU tensor
+    with the same dtype and bits."""
+    from repro_torch.core.transport import decode_value, encode_value, to_portable
+
+    r = np.random.default_rng(4)
+    base = torch.from_numpy(r.standard_normal((6, 5)).astype(np.float32) * 9)
+    t = (base.to(torch.int8) if dtype == torch.int8 else base.to(dtype)).to(card)
+    for got in (to_portable({"x": [t]})["x"][0],
+                decode_value(encode_value({"x": [t]}))["x"][0]):
+        assert got.device.type == "cpu" and got.dtype == dtype
+        assert torch.equal(got.reshape(-1).view(torch.uint8),
+                           t.cpu().reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_proc_plane_on_the_card_matches_local(card, monkeypatch):
+    """The toy ``sd3:basic`` request on ``ProcBackend(device="cuda")`` (one
+    worker with its own CUDA context) is bit-identical to
+    ``LocalBackend(device="cuda")``; every reply reaches the parent as CPU
+    tensors; a seeded adapter lands on the card."""
+    from repro_torch.core import (
+        LocalBackend,
+        ProcBackend,
+        ProcConfig,
+        ServingSystem,
+        processes_available,
+    )
+    from repro_torch.core import transport
+    from repro_torch.core.executor import AdapterPool
+    from repro_torch.diffusion import SD3, LoRAAdapter, make_basic_workflow
+
+    if not processes_available():
+        pytest.skip("cannot spawn worker processes")
+    seen = []
+    real_split = transport.split_frames
+
+    def spy(buf):
+        msgs = real_split(buf)
+        for m in msgs:
+            for out in m.get("outs") or ():
+                seen.extend(v for v in out.values()
+                            if isinstance(v, torch.Tensor))
+        return msgs
+
+    monkeypatch.setattr(transport, "split_frames", spy)
+    images = {}
+    for name, backend in (
+            ("local", LocalBackend(device="cuda")),
+            ("proc", ProcBackend(ProcConfig(spawn_timeout=120.0,
+                                            exec_wall_timeout=120.0),
+                                 device="cuda"))):
+        system = ServingSystem(n_executors=1, backend=backend)
+        system.register(make_basic_workflow("sd3"))
+        with system:
+            req = system.submit("sd3:basic",
+                                inputs={"seed": 0, "prompt": "a fox"},
+                                arrival=0.0, steps=3)
+            system.run()
+            assert req.status == "done"
+            images[name] = system.coordinator.engine.value_of(
+                req.ref_key(req.graph.outputs["image"]))
+    assert images["local"].device.type == "cuda"
+    assert images["proc"].device.type == "cpu"
+    assert seen and all(t.device.type == "cpu" for t in seen)
+    assert torch.equal(images["proc"], images["local"].cpu())
+    comps = LoRAAdapter(SD3, "seeded").load("cpu")
+    pool = AdapterPool(1 << 30, device=card)
+    pool.seed("lora:seeded:sd3", comps)
+    assert pool._entries["lora:seeded:sd3"]["lora"]["wq_a"].device.type == "cuda"

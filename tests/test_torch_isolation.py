@@ -66,6 +66,13 @@ LAUNCH_MODULES = [
     "repro_torch.diffusion.serving",
 ]
 
+# the process plane: the frame transport and the supervisor whose spawned
+# workers run the port's backend
+PROC_MODULES = [
+    "repro_torch.core.transport",
+    "repro_torch.core.supervisor",
+]
+
 _PROBE = """
 import importlib, sys
 
@@ -90,8 +97,9 @@ def _src():
 
 
 @pytest.mark.parametrize("modules", [MODULES, LORA_MODULES, QUANT_MODULES,
-                                     LAUNCH_MODULES],
-                         ids=["main-path", "lora", "quant-rglru", "launch"])
+                                     LAUNCH_MODULES, PROC_MODULES],
+                         ids=["main-path", "lora", "quant-rglru", "launch",
+                              "proc"])
 def test_port_imports_without_jax_or_repro(modules):
     env = dict(os.environ, PYTHONPATH=_src())
     out = subprocess.run([sys.executable, "-c", _PROBE, *modules], env=env,
@@ -125,3 +133,48 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
             names.add(node.module.split(".")[0])
     assert "repro_torch" in names and "torch" in names
     assert not names & {"jax", "jaxlib", "repro"}
+
+
+# an op whose forward reports the JAX and JAX-package modules its process
+# holds; written to a module of its own so a spawned worker can import it
+_MODULES_OP = """
+import sys
+
+from repro_torch.core.model import Model
+
+
+class ModulesProbe(Model):
+    def setup_io(self):
+        self.add_output("modules", None)
+
+    def execute(self, model_components, **kw):
+        return {"modules": sorted(
+            m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "repro"))}
+"""
+
+
+def test_spawned_worker_imports_neither_jax_nor_repro(tmp_path, monkeypatch):
+    """A worker of the process plane, spawned from a process that holds
+    JAX and the JAX package, serves an RPC without importing either."""
+    from repro_torch.core import ProcBackend, ProcConfig, processes_available
+
+    if not processes_available():
+        pytest.skip("the host forbids spawning worker processes")
+    import jax  # noqa: F401  (the parent holds JAX and the JAX package)
+    import repro.core  # noqa: F401
+
+    (tmp_path / "modules_probe_op.py").write_text(_MODULES_OP)
+    monkeypatch.syspath_prepend(str(tmp_path))
+    import modules_probe_op
+
+    be = ProcBackend(ProcConfig(spawn_timeout=60.0, exec_wall_timeout=60.0),
+                     device="cpu")
+    try:
+        outs, _, _ = be.execute_batch(modules_probe_op.ModulesProbe(), [{}],
+                                      executor_id=0)
+        assert be.workers[0].pid != os.getpid()
+    finally:
+        be.close()
+    assert "jax" in sys.modules and "repro" in sys.modules
+    assert outs == [{"modules": []}]

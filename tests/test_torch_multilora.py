@@ -125,13 +125,13 @@ def test_text_encoder_apply_with_lora_stack_matches_jax():
 # the system gate: grouped multi-LoRA == folded solo, per request
 # --------------------------------------------------------------------------
 
-def _build_port(ms, multilora, fused=True):
+def _build_port(ms, multilora, fused=True, backend=None):
     """Deterministic patch semantics, as the JAX test's ``_build_system``:
     AsyncLoRAPass is left out, so adapters resolve at dispatch in both the
     solo and the mixed runs (its fold-in step depends on measured wall
-    seconds).  Returns the system, its backend and the adapter models by
-    id."""
-    be = tcore.LocalBackend(device="cpu")
+    seconds).  Returns the system, its backend (``backend``, by default
+    ``LocalBackend(device="cpu")``) and the adapter models by id."""
+    be = backend if backend is not None else tcore.LocalBackend(device="cpu")
     s = tcore.ServingSystem(n_executors=1, backend=be)
     passes = ([InlineTrivialPass()] + ([SegmentFusionPass()] if fused else [])
               + [JitCompilePass()])
@@ -197,6 +197,33 @@ def test_multilora_parity_single_device(port_runs, fused):
     torch.testing.assert_close(images[2], solo["sd3:basic"], rtol=0, atol=0)
     # adapters actually distinguish tenants
     assert float((images[0] - images[1]).abs().max()) > 1e-6
+
+
+def test_multilora_parity_proc(port_runs):
+    """The mixed batch on the process plane (one CPU worker): within
+    ``PARITY_TOL`` of each tenant's folded solo run and bit for bit the
+    in-process grouped run; both tenants' decoded factors ship once, and a
+    warm second wave rides bare staged refs."""
+    if not tcore.processes_available():
+        pytest.skip("the host forbids spawning worker processes")
+    solo, mixed = port_runs
+    be = tcore.ProcBackend(tcore.ProcConfig(spawn_timeout=60.0,
+                                            exec_wall_timeout=60.0),
+                           device="cpu")
+    s, _, _ = _build_port(tdiff.ModelSet(tdiff.FAMILIES["sd3"]),
+                          multilora=True, backend=be)
+    with s:
+        images = _run_mixed(s)
+        assert any(b.multilora for b in s.coordinator.dispatch_log)
+        # both tenants' decoded factors shipped exactly once
+        assert be.adapter_ships == 2 and be.adapter_hits == 0
+        for (n, _), img, local in zip(SUBS, images, mixed[True][0]):
+            d = float((img - solo[n]).abs().max())
+            assert d <= PARITY_TOL, (n, d)
+            torch.testing.assert_close(img, local, rtol=0, atol=0)
+        # a warm second wave rides bare staged refs, nothing re-ships
+        _run_mixed(s)
+        assert be.adapter_ships == 2 and be.adapter_hits >= 2
 
 
 def test_multilora_fused_equals_unfused(port_runs):

@@ -47,6 +47,7 @@ from repro.nn import layers as jlayers
 import repro_torch.diffusion as tdiff
 from repro_torch.core.executor import AdapterPool
 from repro_torch.core.profiles import ProfileStore
+from repro_torch.core.transport import decode_value, encode_value
 from repro_torch.diffusion import encoders as te
 from repro_torch.diffusion import lora as tl
 from repro_torch.diffusion import mmdit as tm
@@ -505,6 +506,25 @@ def test_adapter_pool_bytes_use_quantized_sizes():
         jpool = JAdapterPool(capacity_bytes=1 << 30)
         jpool.get(jdiff.LoRAAdapter(jdiff.FAMILIES["sd3"], "styleq"))
     assert jpool.resident_bytes == q_bytes
+
+
+def test_adapter_ship_payload_is_quantized():
+    """The proc plane ships exactly what the parent's pool holds
+    (``adapter_pool.get(p)`` -> ``encode_value``): under int8 the wire
+    payload is the small form, and it decodes to the same bits."""
+    with quant("off"):
+        wire_off = len(encode_value(_pool().get(_adapter())[0]))
+    with quant("int8"):
+        comps = _pool().get(_adapter())[0]
+        wire = encode_value(comps)
+        assert tq.is_quantized(comps["lora"]["wq_a"])
+    assert len(wire) < 0.5 * wire_off
+    got = decode_value(wire)
+    for t in tl.TARGETS:
+        for key in ("qw", "qs"):
+            want = comps["lora"][f"{t}_a"][key]
+            have = got["lora"][f"{t}_a"][key]
+            assert have.dtype == want.dtype and torch.equal(have, want)
 
 
 def test_adapter_pool_counters_coherent_across_quant_flip():

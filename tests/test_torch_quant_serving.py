@@ -98,10 +98,11 @@ def _serve_jax(mode):
     return images, weights
 
 
-def _serve_port(mode, weights, nudge=None):
+def _serve_port(mode, weights, nudge=None, backend=None):
     """The port's images in ``mode`` on carried weights and the JAX
     package's latents (times ``1 + 1e-7 * noise`` with ``nudge`` a seed),
-    the system, and the quantized products it ran."""
+    the system, and the quantized products it ran (on ``backend``, by
+    default ``LocalBackend(device="cpu")``; closed before it returns)."""
     ms = tdiff.ModelSet(tdiff.FAMILIES["sd3"])
     for name, tree in weights.items():
         getattr(ms, name).weights = from_numpy(tree)
@@ -127,11 +128,13 @@ def _serve_port(mode, weights, nudge=None):
     try:
         with quant(mode):
             system = tcore.ServingSystem(
-                n_executors=1, backend=tcore.LocalBackend(device="cpu"))
+                n_executors=1,
+                backend=backend or tcore.LocalBackend(device="cpu"))
             system.register(tdiff.make_basic_workflow("sd3", ms=ms))
             reqs = [system.submit("sd3:basic", inputs=dict(inp), arrival=0.0,
                                   steps=4) for inp in REQUESTS]
-            system.run()
+            with system:
+                system.run()
     finally:
         tq.quant_matmul = real
     assert all(r.status == "done" for r in reqs)
@@ -183,6 +186,25 @@ def test_served_image_matches_jax(mode, served):
     assert any(d.model_id.startswith("segment:") for d in log)
     want_calls = expected_quant_products(log, tdiff.FAMILIES["sd3"].toy.n_layers)
     assert len(calls) == (want_calls if mode == "int8" else 0)
+
+
+def test_served_image_parity_proc(served, monkeypatch):
+    """int8 on the process plane: the worker reads ``REPRO_QUANT`` from the
+    environment it inherits at spawn and gets the JAX package's quantized
+    weights through the staging protocol; its images are the in-process
+    int8 images bit for bit."""
+    if not tcore.processes_available():
+        pytest.skip("the host forbids spawning worker processes")
+    monkeypatch.setenv("REPRO_QUANT", "int8")
+    _, weights, want, _, _ = served["int8"]
+    be = tcore.ProcBackend(tcore.ProcConfig(spawn_timeout=60.0,
+                                            exec_wall_timeout=60.0),
+                           device="cpu")
+    got, system, calls = _serve_port("int8", weights, backend=be)
+    assert not calls                 # the parent ran no product
+    assert be.weight_ships == 3 and be.n_exec_applied == len(be.exec_log)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_int8_served_image_moves_with_tiny_nudges(served):
