@@ -213,13 +213,42 @@ Phases (any failed check raises, and the script exits non-zero):
    ``cudaMemGetInfo`` with them alive, less before, less the parent's own
    growth) and ``nvidia-smi --query-compute-apps=pid,used_memory``.
 
+7s. The sharded plane (``ShardedBackend`` over a ``MeshManager`` of
+   ``SHARD_SLOTS`` slots, each ``torch.device("cuda", 0)``, told apart by
+   identity) at full width, on one weight draw (``s1_model_set``): one
+   sd3:basic and one sd3:cn1 request (phase 4n's first reference image),
+   4 steps, each served through ``ServingSystem(n_executors=4)`` with
+   ``Scheduler(fixed_parallelism=k, use_declared_max_batch=True,
+   mesh=...)`` at k = 2 (the CFG pair's rows on two slots) and k = 4 (the
+   image tokens on four slots, a K/V all-gather a layer), and once on a
+   single-device ``LocalBackend``.  Counts set to 0 just before each run
+   and read just after: flash attention exactly the calls
+   ``sharded_flash`` reckons from the dispatches, shape by shape (the
+   ops module's ``flash_attention`` is wrapped to record each call's
+   shape), no other kernel.  Each sharded run: every segment dispatch at
+   k, each with a ``shard_log`` entry of k distinct slots;
+   ``check_invariants`` clean; the image (1, 1024, 1024, 3), finite, in
+   [-1, 1] and within ``KERNEL_VS_PLAIN_REL`` of its single-device image.
+   Printed per run: wall, makespan, the segment's shard modes, peak
+   memory and the difference from the single-device image.  Then the
+   sd3:basic request again on the warm single-device and k = 4 systems
+   under the profiler (``profile_path``): flash attention, the f32 GEMMs
+   and the copy kernels (``SHARD_PROFILE``) by device time and share of
+   busy time, and the idle share.  The k slots of one card run their
+   shards one after another: these are correctness runs, not parallel
+   speed.
+5s. Flash attention at each shape the sharded runs gave it that phases 5,
+   5c, 5n and 5l did not cover, led by the sequence-sharded (48, 1357,
+   4429, 64), held against the plain version (f32 atol 2e-5) and timed as
+   in phase 5, both bounds included.
+
 The phases run in the order 1, 2, 3, 4, 5, 6, 4q, 5q, 6q, 4b, 4c, 5b, 6b,
-5c, 4n, 5n, 4nq, 6n, 7l, 5l, 7p.  Before the last two lines, one JSON ``kernels`` line
+5c, 4n, 5n, 4nq, 6n, 7l, 5l, 7p, 7s, 5s.  Before the last two lines, one JSON ``kernels`` line
 lists every kernel, ``quantize_rows`` (which replaces plain code, not a
 Pallas kernel) among them: its ``launches`` are the count from its own
 path's run (the single-adapter LoRA kernel and ``rglru_scan`` have no
 serving path: 0; ``launches_by_path`` gives each path's count where a
-kernel has several), and each leads with the largest shape its
+kernel has several, the sharded plane's under ``sharded``), and each leads with the largest shape its
 path launched, the others under ``other_shapes``.  The line before the last
 is the card's name and power limit as nvidia-smi prints them; the last line
 is the JSON result.  Without a CUDA device, or without the repository beside
@@ -237,6 +266,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -335,6 +365,15 @@ SERVE_ARGS = ["--setting", "s1", "--plane", "local", "--executors", "1",
 # one card; the segment chunk that splits a request's steps across RPCs
 PROC_EXECUTORS = 2
 PROC_CHUNK = 2
+# phase 7s: the sharded plane's slots (each a torch.device of the one card,
+# told apart by identity) and the parallelism degrees it serves at: k = 2
+# splits a CFG pair's rows, k = 4 shards the image tokens
+SHARD_SLOTS = 4
+SHARD_KS = (2, 4)
+# what phase 7s's profiles sum by kind: the copy kernels are the
+# submesh's gathers and concatenations (torch.cat, contiguous copies)
+SHARD_PROFILE = {"flash_attention": FLASH_KERNELS, "f32_gemms": GEMM_KERNELS,
+                 "copies": ("CatArray", "copy", "Memcpy")}
 # (B, T, D): tests/test_kernels.py's RG-LRU grid, then RecurrentGemma-2B's
 # width (D 2560) at two batch and sequence splits
 RGLRU_GRID = [(2, 128, 128), (1, 200, 96), (3, 64, 256), (2, 300, 50)]
@@ -1523,6 +1562,186 @@ def proc_phase(torch, family, card, counters, kept, device="cuda"):
         raise AssertionError("the quant mode was not restored")
 
 
+# ------------------------------------------------------------ sharded plane
+
+def sharded_flash(dispatch_log, cfg) -> Counter:
+    """Flash-attention launches by shape (BH, Sq, Sk, D) that a run's
+    dispatches must have made on the sharded plane.  A segment at
+    parallelism k over its 2n CFG rows, per step: where k divides the rows,
+    each slot runs the backbone's layers on 2n/k rows and each
+    ControlNet's on its 2n/k duplicated rows; else each slot runs the
+    backbone's layers on its image-token slice against every key (Sq = Tc
+    + Ti/k) and each ControlNet runs once, on the home slot, on the n
+    latent rows.  At k = 1 the backbone takes the 2n rows and each
+    ControlNet the n.  A text batch: two layers."""
+    calls = Counter()
+    h, hd, tok = cfg.n_heads, cfg.head_dim, cfg.tokens
+    for d in dispatch_log:
+        n, k = len(d.nodes), d.parallelism
+        if d.model_id.startswith("segment:"):
+            per_cn = d.segment_steps * n_controlnets(d.model_id) * cn_layers(cfg)
+            if k == 1:
+                calls[(2 * n * h, tok, tok, hd)] += d.segment_steps * cfg.n_layers
+                if per_cn:
+                    calls[(n * h, tok, tok, hd)] += per_cn
+            elif (2 * n) % k == 0:
+                calls[(2 * n // k * h, tok, tok, hd)] += k * (
+                    d.segment_steps * cfg.n_layers + per_cn)
+            else:
+                calls[(2 * n * h, cfg.text_tokens + cfg.image_tokens // k,
+                       tok, hd)] += k * d.segment_steps * cfg.n_layers
+                if per_cn:
+                    calls[(n * h, tok, tok, hd)] += per_cn
+        elif d.model_id.startswith("text_encoder:"):
+            calls[(4 * n, cfg.text_tokens, cfg.text_tokens,
+                   cfg.text_dim // 4)] += 2
+    return +calls
+
+
+def sharded_phase(torch, family, cn_weights, card, counters, device="cuda"):
+    """Phase 7s: one sd3:basic and one sd3:cn1 request at full width through
+    ``ServingSystem`` -> ``Scheduler(fixed_parallelism=k)`` ->
+    ``ShardedBackend.execute_batch(..., mesh=submesh)`` over ``SHARD_SLOTS``
+    slots of the one card, at each k of ``SHARD_KS``, each image held
+    against the same request on a single-device ``LocalBackend`` from the
+    same weights; the checks and printed metrics of the docstring's 7s.
+    Returns the shapes the sharded runs gave flash attention, its launches
+    in them, and each run's summary."""
+    from repro_torch.core import (
+        LocalBackend,
+        MeshManager,
+        Scheduler,
+        ServingSystem,
+        ShardedBackend,
+    )
+    from repro_torch.diffusion import make_basic_workflow, make_controlnet_workflow
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.sim import check_invariants
+
+    cfg = family.toy
+    ms = s1_model_set(family, cn_weights, device)
+    ref = ref_image(torch, REF_SEEDS[0], 8 * cfg.latent_size) \
+        if device == "cuda" else None
+    runs = {"sd3:basic": (make_basic_workflow("sd3", ms), REQUESTS[0]),
+            "sd3:cn1": (make_controlnet_workflow("sd3", 1, ms),
+                        {**REQUESTS[0], "ref_image": ref})}
+    # every call's shape, read through the ops module's global, which mha
+    # looks up at each call (the wrapper's own count is still the count)
+    seen = Counter()
+    real = fops.flash_attention
+
+    def recorded(q, k, v, **kw):
+        seen[(q.shape[0], q.shape[1], k.shape[1], q.shape[2])] += 1
+        return real(q, k, v, **kw)
+
+    def one_run(name, k):
+        wf, inp = runs[name]
+        if k == 1:
+            backend = LocalBackend(device=device)
+            system = ServingSystem(n_executors=1, backend=backend)
+        else:
+            mm = MeshManager(devices=[torch.device(device, 0) if device == "cuda"
+                                      else torch.device(device)
+                                      for _ in range(SHARD_SLOTS)])
+            backend = ShardedBackend(mm)
+            system = ServingSystem(n_executors=SHARD_SLOTS, backend=backend)
+            system.coordinator.scheduler = Scheduler(
+                system.profiles, fixed_parallelism=k,
+                use_declared_max_batch=True, mesh=mm)
+        system.register(wf)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        seen.clear()
+        t0 = time.perf_counter()
+        req = serve(system, [(wf.name, inp)], STEPS)[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        c = system.coordinator
+        want = sharded_flash(c.dispatch_log, cfg)
+        others = sum(n for m, n in launches.items() if m != "flash_attention")
+        if (launches["flash_attention"] != sum(want.values()) or others
+                or dict(seen) != dict(want)):
+            raise AssertionError(
+                f"sharded {name} k={k}: launches {launches}, flash calls by "
+                f"shape {dict(seen)}, reckoned {dict(want)}; dispatches "
+                f"{[(d.model_id, len(d.nodes), d.parallelism) for d in c.dispatch_log]}")
+        errs = check_invariants(c)
+        if errs:
+            raise AssertionError(f"sharded {name} k={k}: invariants {errs}")
+        segs = [d for d in c.dispatch_log if d.model_id.startswith("segment:")]
+        modes = []
+        if k > 1:
+            logged = [s for s in backend.shard_log
+                      if s[0].startswith("segment:")]
+            if (not segs or any(d.parallelism != k for d in segs)
+                    or len(logged) != len(segs)
+                    or any(s[2] != k or len(set(s[3])) != k for s in logged)):
+                raise AssertionError(
+                    f"sharded {name} k={k}: segment dispatches "
+                    f"{[(d.model_id, d.parallelism) for d in segs]}, shard "
+                    f"log {backend.shard_log}")
+            modes = ["rows" if (2 * len(d.nodes)) % k == 0 else "sequence"
+                     for d in segs]
+        img = image_of(system, req)
+        check_image(torch, img, card, f"sharded {name} k={k}")
+        summary = {
+            "workflow": name, "k": k, "slots": SHARD_SLOTS if k > 1 else 1,
+            "wall_s": wall, "makespan_s": c.now,
+            "latency_s": req.latency, "segment_modes": modes,
+            "shard_log": [list(s[:3]) + [list(s[3])] for s in
+                          getattr(backend, "shard_log", [])],
+            "dispatches": [(d.model_id, len(d.nodes), d.parallelism,
+                            d.segment_steps) for d in c.dispatch_log],
+            "flash_attention": launches["flash_attention"],
+            "flash_calls_by_shape": {str(s): n for s, n in sorted(seen.items())},
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if name == "sd3:basic" and k in (1, max(SHARD_KS)):
+            # where the time goes: the request again on the warm system
+            profile_path(torch, system, [(wf.name, inp)], card,
+                         f"sharded {name} k={k}", SHARD_PROFILE)
+        return img, summary, set(seen)
+
+    fops.flash_attention = recorded
+    try:
+        out, shapes, flash = [], set(), 0
+        for name in runs:
+            single, base, _ = one_run(name, 1)
+            log(f"[sharded] {json.dumps(base)}  [{card}]")
+            for k in SHARD_KS:
+                img, summary, run_shapes = one_run(name, k)
+                err = rel(img, single)
+                summary["rel_err_vs_single"] = err
+                summary["max_abs_diff_vs_single"] = float(
+                    (img - single).abs().max())
+                log(f"[sharded] {json.dumps(summary)}  [{card}]")
+                if not err < KERNEL_VS_PLAIN_REL:
+                    raise AssertionError(f"sharded {name} k={k}: image vs the "
+                                         f"single-device image rel err {err}")
+                log(f"[sharded] {name} k={k} over {SHARD_SLOTS} slots of one "
+                    f"card, segment mode {summary['segment_modes']}: wall "
+                    f"{summary['wall_s']:.3f} s, makespan "
+                    f"{summary['makespan_s']:.3f} s (single device "
+                    f"{base['wall_s']:.3f} / {base['makespan_s']:.3f} s), "
+                    f"peak memory {summary['peak_memory_gib']:.2f} GiB, "
+                    f"flash_attention launches {summary['flash_attention']} "
+                    f"as reckoned; image vs the single-device image rel err "
+                    f"{err:.3e} < {KERNEL_VS_PLAIN_REL}, max|diff| "
+                    f"{summary['max_abs_diff_vs_single']:.3e}  [{card}]")
+                shapes |= run_shapes
+                flash += summary["flash_attention"]
+                out.append(summary)
+            del single
+    finally:
+        fops.flash_attention = real
+    del ms
+    gc.collect()
+    torch.cuda.empty_cache()
+    return shapes, flash, out
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         sys.exit("chip_smoke.py: src/repro_torch not found beside the script; "
@@ -2392,7 +2611,6 @@ def main() -> None:
                 qk.quant_matmul, qk.quantize_rows, rk.rglru_scan)
     trace_shapes, trace_flash = trace_phase(torch, family, cn_weights, card,
                                             counters)
-    del cn_weights
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2415,6 +2633,31 @@ def main() -> None:
     del kept_int8, kept_lora
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---------- 7s. the sharded plane over slots of the card
+    shard_shapes, shard_flash, _ = sharded_phase(torch, family, cn_weights,
+                                                 card, counters)
+    del cn_weights
+
+    # ---------- 5s. flash attention at the sharded plane's own shapes
+    shard_timings = []
+    covered = set(shapes) | ml_flash_shapes | cn_flash_shapes | trace_shapes
+    seq_shape = (2 * cfg.n_heads,
+                 cfg.text_tokens + cfg.image_tokens // max(SHARD_KS),
+                 cfg.tokens, cfg.head_dim)
+    new_shapes = sorted(shard_shapes - covered,
+                        key=lambda s: (s != seq_shape, -s[0] * s[1] * s[2] * s[3]))
+    if seq_shape not in new_shapes:
+        raise AssertionError(f"the sharded plane gave flash attention no "
+                             f"{seq_shape}: {sorted(shard_shapes)}")
+    for shape in new_shapes:
+        err = check_attention(torch, fa, shape, False, None, f32, 2e-5)
+        errs.append(err)
+        log(f"[kernel] sharded path {shape} float32: max|err| {err:.2e} "
+            f"<= 2e-05")
+        shard_timings.append({**time_attention(torch, fa, shape, f32),
+                              "path": "sharded plane (phase 7s)"})
+        log_attention_time(shard_timings[-1], shape, card)
 
     # the headline is the largest shape each path really launched
     served = max(path_shapes, key=lambda s: s[0] * s[1] * s[2] * s[3])
@@ -2440,11 +2683,12 @@ def main() -> None:
               "src/repro/kernels/flash_attention/kernel.py:109", launches,
               max(errs), main,
               [t for t in timings if t is not main] + ml_timings + cn_timings
-              + trace_timings,
+              + trace_timings + shard_timings,
               {"basic": launches, "basic int8": q_flash, "lora": ml_flash,
                "controlnet": cn_flash, "controlnet int8": nq_flash,
                "S1 trace, flags off": trace_flash[0],
-               "S1 trace, flags on": trace_flash[1]}),
+               "S1 trace, flags on": trace_flash[1],
+               "sharded": shard_flash}),
         entry("lora_matmul_grouped", lora_src,
               "src/repro/kernels/lora_matmul/kernel.py:172", ml_grouped,
               lora_path_err["grouped"], lora_times[lead_key],

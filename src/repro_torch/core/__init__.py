@@ -1,11 +1,12 @@
 """LegoDiffusion core: micro-serving of diffusion workflows, PyTorch port.
 
-Public surface (the single-device and process-isolated executable
-planes; the sharded plane is not ported yet):
+Public surface (the single-device, sharded and process-isolated
+executable planes):
 
 * DSL      -- Model, Workflow, compose
 * Compiler -- GraphCompiler, optimization passes
-* Runtime  -- Coordinator, ServingSystem, LocalBackend, ProcBackend
+* Runtime  -- Coordinator, ServingSystem, LocalBackend, ShardedBackend,
+  MeshManager, ProcBackend
 * Policy   -- Scheduler, AdmissionController, Autoscaler
 """
 
@@ -13,7 +14,7 @@ from repro_torch.core.admission import AdmissionController, critical_path_second
 from repro_torch.core.autoscaler import Autoscaler, AutoscalerConfig, ScaleAction
 from repro_torch.core.compiler import CompiledGraph, CompileError, GraphCompiler, Pass
 from repro_torch.core.datastore import DataEngine, FetchFuture
-from repro_torch.core.executor import Executor, LocalBackend, OutOfMemory
+from repro_torch.core.executor import Executor, LocalBackend, OutOfMemory, ShardedBackend
 from repro_torch.core.faults import (
     DataFetchError,
     FaultPlane,
@@ -21,6 +22,7 @@ from repro_torch.core.faults import (
     RetryPolicy,
     TransientBackendError,
 )
+from repro_torch.core.mesh import MeshManager, sharded_exec_enabled
 from repro_torch.core.model import Model, ModelCost
 from repro_torch.core.passes import (
     ApproximateCachingPass,

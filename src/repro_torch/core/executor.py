@@ -11,7 +11,10 @@ Two backends share this class:
 * **simulated** (default) — execution is a duration from the profiles;
 * **local** (:class:`LocalBackend`) — `load()`/`execute()` actually run on
   one torch device (the CUDA card unless the caller asks for the CPU),
-  used by the executable examples and the chip smoke run.
+  used by the executable examples and the chip smoke run;
+* **sharded** (:class:`ShardedBackend`) — a batch scheduled at
+  parallelism k > 1 runs as one sharded forward over the k device slots
+  of its executors (:mod:`repro_torch.core.mesh`).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.core.mesh import MeshManager, Submesh, sharded_exec_enabled
 from repro_torch.core.model import Model
 from repro_torch.core.profiles import ProfileStore
 from repro_torch.core.telemetry import FoldCacheEviction, default_registry
@@ -607,5 +611,106 @@ class LocalBackend:
         exec_dt = _time.perf_counter() - t0
         self.multilora_forwards += 1
         self.forward_log.append((model.model_id, len(batch_kwargs)))
+        self.exec_seconds += load_dt + exec_dt
+        return outs, load_dt, exec_dt
+
+
+class ShardedBackend(LocalBackend):
+    """Multi-slot backend: materializes a :class:`ScheduledBatch`'s
+    parallelism degree ``k`` as a real sharded forward over a k-slot
+    :class:`~repro_torch.core.mesh.Submesh`.
+
+    The coordinator passes the submesh assembled from the batch's
+    executors; this backend replicates the (LoRA-folded) components onto
+    its slots, one tree per slot cached per ``(model_id, patch_ids,
+    slots)`` (a slot on the home card aliases the home tree: four slots of
+    one card hold one copy of the weights), and hands the stacked batch to
+    :meth:`Model.execute_batch_sharded`.  Models that decline (indivisible
+    shapes, no sharded path) fall back to the inherited single-device
+    stacked forward, so a one-slot manager or ``REPRO_SHARDED_EXEC=0``
+    behaves exactly like :class:`LocalBackend`; ``shard_log`` records
+    every forward that did shard.
+
+    The home device, where the single-device path runs and where sharded
+    outputs are gathered back (the coordinator's data plane is one
+    device), is the manager's first slot.  ``MeshManager()`` with no
+    devices takes every CUDA card and raises where there is none.
+    """
+
+    def __init__(self, mesh_manager: Optional[MeshManager] = None,
+                 folded_budget_bytes: Optional[float] = None,
+                 adapter_pool_bytes: Optional[float] = None) -> None:
+        mesh_manager = mesh_manager or MeshManager()
+        super().__init__(mesh_manager.devices[0], folded_budget_bytes,
+                         adapter_pool_bytes)
+        self.mesh_manager = mesh_manager
+        self.enabled = (sharded_exec_enabled()
+                        and mesh_manager.n_devices > 1)
+        # (model_id, patch_ids, slots) -> one components tree per slot
+        self._replicated: Dict[Tuple, List[Dict[str, Any]]] = {}
+        # (model_id, batch_size, k, slots) per sharded forward
+        self.shard_log: List[Tuple[str, int, int, Tuple[int, ...]]] = []
+
+    # ------------------------------------------------------------ placement
+    def replicated_components(
+        self, model: Model, patches: Sequence[Model], mesh: Submesh
+    ) -> Tuple[List[Dict[str, Any]], float]:
+        """The components (patches folded in) on every slot of ``mesh``,
+        cached per placement.  Returns (one tree per slot, measured load
+        seconds)."""
+        comps, load_dt = self.components_for(model, patches)
+        key = (model.model_id, tuple(p.model_id for p in patches), mesh.slots)
+        if key in self._replicated:
+            return self._replicated[key], load_dt
+        t0 = _time.perf_counter()
+        out = mesh.replicate(comps)
+        self._block_mesh(mesh)
+        load_dt += _time.perf_counter() - t0
+        self._replicated[key] = out
+        return out, load_dt
+
+    def unload(self, model_id: str) -> None:
+        super().unload(model_id)
+        self._replicated = {
+            k: v for k, v in self._replicated.items()
+            if k[0] != model_id and model_id not in k[1]
+        }
+
+    def _block_mesh(self, mesh: Submesh) -> None:
+        """Wait for every card of the submesh and the home card (see
+        ``_block``)."""
+        for d in {d for d in (*mesh.devices, self.device) if d.type == "cuda"}:
+            torch.cuda.synchronize(d)
+
+    # ------------------------------------------------------------ execution
+    def execute_batch(
+        self,
+        model: Model,
+        batch_kwargs: List[Dict[str, Any]],
+        patches: Sequence[Model] = (),
+        mesh: Optional[Submesh] = None,
+    ) -> Tuple[List[Dict[str, Any]], float, float]:
+        """Sharded stacked forward when ``mesh`` spans more than one slot,
+        else the inherited single-device path."""
+        self._maybe_inject_fault()
+        if (mesh is None or not self.enabled
+                or getattr(mesh, "size", 1) <= 1):
+            return super().execute_batch(model, batch_kwargs, patches)
+        lifted, clean, uniform = self._lift_patches(batch_kwargs, patches)
+        if not uniform:
+            # mixed per-request patch sets cannot share replicated params
+            return super().execute_batch(model, batch_kwargs, patches)
+        replicas, load_dt = self.replicated_components(model, lifted, mesh)
+        t0 = _time.perf_counter()
+        outs = model.execute_batch_sharded(replicas, clean, mesh)
+        if outs is None:       # model declined: single-device fallback
+            return super().execute_batch(model, batch_kwargs, patches)
+        outs = [{k: (v.to(self.device) if isinstance(v, torch.Tensor) else v)
+                 for k, v in out.items()} for out in outs]
+        self._block_mesh(mesh)
+        exec_dt = _time.perf_counter() - t0
+        self.forward_log.append((model.model_id, len(batch_kwargs)))
+        self.shard_log.append((model.model_id, len(batch_kwargs),
+                               mesh.size, mesh.slots))
         self.exec_seconds += load_dt + exec_dt
         return outs, load_dt, exec_dt

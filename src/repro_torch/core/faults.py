@@ -34,8 +34,8 @@ Fault taxonomy (all independently schedulable):
                 the producer (lineage recovery).
 
 Process-plane faults (real fault domains — only meaningful with the
-process-isolated backend, where executors are separate OS processes; that
-plane is not ported yet):
+process-isolated backend, ``ProcBackend``, where executors are separate
+OS processes):
 
 ``proc_kill``   SIGKILL the worker process the instant the exec frame is
                 on the wire (``kill_every_execs`` cadence, bounded by

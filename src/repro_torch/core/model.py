@@ -294,21 +294,22 @@ class Model(abc.ABC):
 
     def execute_batch_sharded(
         self,
-        model_components: Dict[str, Any],
+        model_components: List[Dict[str, Any]],
         batch_kwargs: List[Dict[str, Any]],
         mesh: Any,
     ) -> Optional[List[Dict[str, Any]]]:
-        """Run one stacked forward as an SPMD program over ``mesh`` (§5.2).
+        """Run one stacked forward sharded over ``mesh`` (§5.2).
 
-        The hook of the sharded backend (not ported yet) for a
-        :class:`ScheduledBatch` that carries parallelism k>1; ``mesh`` is the
-        k-device submesh assembled from the batch's executors, and
-        ``model_components`` arrive with array leaves already replicated
-        across it.  Implementations shard the stacked batch (or the token
-        sequence) over the mesh axis and return per-request outputs, or
-        ``None`` when this batch cannot be sharded soundly (indivisible
-        shapes, unsupported signature) — the backend then falls back to the
-        single-device stacked forward.  The base class knows nothing about
+        The hook :class:`~repro_torch.core.executor.ShardedBackend` calls
+        for a :class:`ScheduledBatch` that carries parallelism k>1; ``mesh``
+        is the k-slot :class:`~repro_torch.core.mesh.Submesh` assembled from
+        the batch's executors, and ``model_components`` arrive as one
+        components tree per slot, in the submesh's order.  Implementations
+        shard the stacked batch (or the token sequence) over the slots with
+        the submesh's collectives, gather the outputs on its home slot and
+        return per-request outputs, or ``None`` when this batch cannot be
+        sharded soundly (indivisible shapes, unsupported signature) — the
+        backend then falls back to the single-device stacked forward.  The base class knows nothing about
         any model's internal parallel structure, so it always declines.
         """
         return None

@@ -46,6 +46,7 @@ from repro_torch.core.executor import (
     Executor,
     LocalBackend,
     OutOfMemory,
+    ShardedBackend,
 )
 from repro_torch.core.faults import (
     DataFetchError,
@@ -1376,6 +1377,15 @@ class Coordinator:
         stacked forwards over the same cached components.
         """
         total = 0.0
+        # sharded plane: a batch scheduled at k>1 executes on the submesh
+        # formed by its executors' slots — the reservation made at
+        # dispatch (all k executors occupied for the measured duration) is
+        # what guarantees those slots stay exclusively ours until the
+        # batch completes
+        submesh = None
+        if (batch.parallelism > 1 and isinstance(self.backend, ShardedBackend)
+                and self.backend.enabled):
+            submesh = self.backend.mesh_manager.submesh(batch.executor_ids)
         groups: Dict[type, List[RequestNode]] = {}
         for rn in batch.nodes:
             groups.setdefault(type(rn.node.op), []).append(rn)
@@ -1446,7 +1456,10 @@ class Coordinator:
                             ok[port] = rn.request.ref_key(ref)
                     out_keys.append(ok)
                 batch_kwargs.append(kwargs)
-            if proc:
+            if submesh is not None:
+                outs, load_dt, exec_dt = self.backend.execute_batch(
+                    op, batch_kwargs, patches=patches, mesh=submesh)
+            elif proc:
                 if trace_proc:
                     # span context rides the exec RPC: the worker records
                     # stage/forward spans relative to RPC receipt and the

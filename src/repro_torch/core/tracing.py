@@ -7,8 +7,8 @@ quarantines, and recovery replays.  The coordinator records spans in
 planes: sim arms get timelines for free, and the executable plane's
 measured wall durations *are* its virtual durations.
 
-Worker processes (the process plane, not ported yet) measure their spans in
-wall seconds **relative to RPC receipt**; the parent rebases them onto
+Worker processes (the process plane, ``ProcBackend``) measure their spans
+in wall seconds **relative to RPC receipt**; the parent rebases them onto
 the virtual dispatch timestamp when the reply lands.  Because a proc
 RPC's wall time is exactly the batch's virtual window, rebased worker
 spans nest inside their dispatch span with no clock-offset bookkeeping.

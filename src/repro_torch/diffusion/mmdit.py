@@ -19,13 +19,17 @@ run the grouped multi-adapter form (:func:`_lora_proj`).  Under
 
 The ControlNet branch (:func:`init_controlnet`, :func:`controlnet_apply`)
 is a truncated stack of the same blocks whose per-layer residuals feed
-:func:`mmdit_apply`'s ``control_residuals``.  The sequence-sharded
-forward is not ported yet.
+:func:`mmdit_apply`'s ``control_residuals``.
+
+:func:`mmdit_apply_seq_sharded` is the sequence-sharded forward over the
+slots of a :class:`~repro_torch.core.mesh.Submesh`: where the JAX package
+runs one SPMD body per device, the port walks the layers once and, in
+each, every shard in turn.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.diffusion.config import DiTConfig
 from repro_torch.nn.layers import (
     dense_init,
+    flash_attention_enabled,
     gelu,
     gqa_attention,
     grouped_lora_dense,
@@ -255,9 +260,102 @@ def mmdit_apply(
     return unpatchify(out, cfg.patch, cfg.latent_size, cfg.latent_channels)
 
 
+# ------------------------------------------------- sequence-sharded backbone
+
+def _mmdit_block_seq(
+    ps: List[Params],             # layer params, one tree per slot
+    xs: List[torch.Tensor],       # LOCAL image tokens [B, Ti/k, d] per slot
+    cs: List[torch.Tensor],       # text tokens [B, Tc, d], one copy per slot
+    t_embs: List[torch.Tensor],   # [B, d] per slot
+    n_heads: int,
+    mesh: Any,
+) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """One MMDiT block under sequence sharding: each slot holds a
+    contiguous slice of the image tokens.  Every shard's q/k/v first, then
+    one all-gather of the image K/V keeps joint attention exact, then each
+    shard's local queries (text plus its image slice) attend over every key
+    through the same flash-attention route as the unsharded block (the
+    kernel takes the rectangular local-q x global-kv shape), and its post.
+    Each slot's text stream sees only its own copies and gathered operands,
+    as in the JAX package, which keeps it replicated without a second
+    collective."""
+    img = [_stream_qkv(p["img"], x, te, n_heads)
+           for p, x, te in zip(ps, xs, t_embs)]
+    txt = [_stream_qkv(p["txt"], c, te, n_heads)
+           for p, c, te in zip(ps, cs, t_embs)]
+    kis = mesh.all_gather([s[1] for s in img], dim=1)
+    vis = mesh.all_gather([s[2] for s in img], dim=1)
+    out_x, out_c = [], []
+    for p, x, c, (qi, _, _, mods_i), (qt, kt, vt, mods_t), ki, vi in zip(
+            ps, xs, cs, img, txt, kis, vis):
+        q = torch.cat([qt, qi], dim=1)        # [B, Tc + Ti/k, H, hd]
+        k = torch.cat([kt, ki], dim=1)        # [B, Tc + Ti,   H, hd]
+        v = torch.cat([vt, vi], dim=1)
+        if flash_attention_enabled():
+            from repro_torch.kernels.flash_attention.ops import mha
+
+            out = mha(q, k, v, causal=False)
+        else:
+            out = gqa_attention(q, k, v, causal=False)
+        tc = c.shape[1]
+        out_x.append(_stream_post(p["img"], x, out[:, tc:], mods_i, n_heads))
+        out_c.append(_stream_post(p["txt"], c, out[:, :tc], mods_t, n_heads))
+    return out_x, out_c
+
+
 def seq_shard_divisor(cfg: DiTConfig, k: int) -> bool:
     """Can the latent's patch-row grid split evenly across k devices?"""
     return (cfg.latent_size // cfg.patch) % k == 0
+
+
+def mmdit_apply_seq_sharded(
+    params: Any,                              # one tree, or one per slot
+    cfg: DiTConfig,
+    latents: torch.Tensor,                    # [B, S, S, C]
+    t: torch.Tensor,                          # [B]
+    text_emb: torch.Tensor,                   # [B, Tc, text_dim]
+    control_residuals: Optional[torch.Tensor],   # [L, B, Ti, d]
+    mesh: Any,
+) -> torch.Tensor:
+    """Sequence-sharded denoising forward over a submesh's slots (§5.2).
+
+    The latent's spatial rows (equivalently, contiguous image-token chunks:
+    patchify is row-major over the patch grid) split across the slots;
+    parameters, timesteps and text embeddings are on every slot, and each
+    slot takes its token slice of the residuals.  Per layer the image K/V
+    are all-gathered, so attention is exact; everything else is
+    token-local.  Composes with batches of ANY size: the path adaptive
+    parallelism needs when a batch has fewer rows than the submesh has
+    slots (one CFG pair on k = 4).  Returns the velocity gathered on the
+    home slot.  Absent residuals are skipped, as in :func:`mmdit_apply`."""
+    replicas = (list(params) if isinstance(params, (list, tuple))
+                else mesh.replicate(params))
+    # same embedding as the unsharded forward; patchify sees only this
+    # shard's latent rows, so x holds the local token slice
+    embedded = [_embed_inputs(p, cfg, lat, tt, emb) for p, lat, tt, emb in zip(
+        replicas, mesh.scatter(latents, dim=1), mesh.replicate(t),
+        mesh.replicate(text_emb))]
+    xs, cs, t_embs = (list(z) for z in zip(*embedded))
+    res = (None if control_residuals is None
+           else mesh.scatter(control_residuals, dim=2))
+    for i in range(cfg.n_layers):
+        xs, cs = _mmdit_block_seq([_layer(p["layers"], i) for p in replicas],
+                                  xs, cs, t_embs, cfg.n_heads, mesh)
+        if res is not None:
+            xs = [x + r[i] for x, r in zip(xs, res)]
+    g = cfg.latent_size // cfg.patch              # global patch columns
+    outs = []
+    for p, x, te in zip(replicas, xs, t_embs):
+        ada = qdense(F.silu(te), p["final_ada"]) + p["final_ada_b"]
+        shift, scale = torch.chunk(ada, 2, dim=-1)
+        x = modulate(rms_norm(x, p["final_norm"]), shift, scale)
+        out = qdense(x, p["final_proj"])
+        # local unpatchify: this shard's token rows -> its latent rows
+        b, rows = out.shape[0], out.shape[1] // g
+        o = out.reshape(b, rows, g, cfg.patch, cfg.patch, cfg.latent_channels)
+        outs.append(o.permute(0, 1, 3, 2, 4, 5).reshape(
+            b, rows * cfg.patch, cfg.latent_size, cfg.latent_channels))
+    return mesh.gather(outs, dim=1)
 
 
 # -------------------------------------------------------------- ControlNet

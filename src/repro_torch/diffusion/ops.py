@@ -25,8 +25,18 @@ weights through the grouped ``lora_matmul`` kernel
 Under ``REPRO_QUANT=int8|fp8`` every load quantizes the projection weights
 (the model's own draw and a caller's ``weights`` alike; quantizing a
 quantized weight is the identity), and every fold requantizes, so the
-components and the fold cache hold the small form.  Single-device only:
-donation and the sharded plane are not ported yet.
+components and the fold cache hold the small form.
+
+The sharded plane: the backbone, the ControlNet branch, both VAE ops and
+the fused segment take ``execute_batch_sharded``, which
+:class:`~repro_torch.core.executor.ShardedBackend` calls with one
+components tree per slot of a :class:`~repro_torch.core.mesh.Submesh`.
+Rows split across the slots where they divide k (with CFG folded onto
+the batch axis, k = 2 puts the two branches on two slots), and the
+backbone and the segment shard the image tokens instead where they do not
+(``mmdit_apply_seq_sharded``).  The JAX package caches one compiled
+``shard_map`` program per placement (``_mesh_fn_cache``); the port
+compiles nothing, so it has no such cache.
 """
 
 from __future__ import annotations
@@ -66,13 +76,16 @@ from repro_torch.diffusion.mmdit import (
     init_controlnet,
     init_mmdit,
     mmdit_apply,
+    mmdit_apply_seq_sharded,
     quantize_mmdit_params,
     seq_shard_divisor,
 )
 from repro_torch.diffusion.sampler import (
+    combine_cfg_rows,
     denoise_step,
     denoise_step_,
     donate_buffers_enabled,
+    fold_cfg,
     fused_cfg_velocity,
 )
 from repro_torch.weights import to_device
@@ -84,6 +97,19 @@ def _split_rows(val: torch.Tensor, sizes: List[int], dim: int = 0
                 ) -> List[torch.Tensor]:
     """Split a stacked batch back into per-request chunks along ``dim``."""
     return list(torch.split(val, sizes, dim=dim))
+
+
+def _shard_rows(mesh: Any, fn: Callable[..., torch.Tensor],
+                replicas: List[Dict[str, Any]], args: Sequence[Any],
+                dims: Sequence[int], out_dim: int = 0) -> torch.Tensor:
+    """Row data parallelism over a submesh: each tensor of ``args`` splits
+    into k parts along its entry of ``dims`` (a ``None`` passes to every
+    slot as it is), slot i computes ``fn(replicas[i], *its parts)``, and
+    the results are gathered on the home slot along ``out_dim``."""
+    parts = [[None] * mesh.size if a is None else mesh.scatter(a, d)
+             for a, d in zip(args, dims)]
+    return mesh.gather([fn(r, *xs) for r, *xs in zip(replicas, *parts)],
+                       dim=out_dim)
 
 
 def _device(device: Any) -> torch.device:
@@ -453,6 +479,52 @@ class DiffusionBackbone(Model):
                               for kw in batch_kwargs], sizes, dev)
         return lat, emb, t, res, guidance, sizes
 
+    def execute_batch_sharded(
+        self,
+        model_components: List[Dict[str, Any]],
+        batch_kwargs: List[Dict[str, Any]],
+        mesh: Any,
+    ) -> Optional[List[Dict[str, Any]]]:
+        """The stacked forward sharded over the submesh's slots, in one of
+        two modes chosen by shape:
+
+        * **latent/CFG-branch data parallelism**: the CFG pair is folded
+          onto the batch axis (cond rows, then null rows) and the rows
+          split across the slots: at k=2/B=1 the conditional and
+          unconditional branches run on different slots (the paper's
+          latent parallelism), at larger B whole requests spread out.
+          Per-item guidance stays a [B] vector applied after the gather,
+          so mixed guidance scales remain fusable.
+        * **sequence sharding**: when the row count does not divide by k
+          (one CFG pair on a k=4 submesh), the image tokens shard instead
+          (``mmdit_apply_seq_sharded``), with per-layer K/V all-gathers
+          keeping joint attention exact.
+
+        Returns None when neither mode fits (the backend falls back to the
+        single-device stacked forward)."""
+        if any(kw.get("_patches") for kw in batch_kwargs):
+            return None      # backend lifts uniform patches before us
+        stacked = self._stack_batch(mesh.home, batch_kwargs)
+        if stacked is None:
+            return None
+        lat, emb, t, res, guidance, sizes = stacked
+        cfg: DiTConfig = model_components[0]["cfg"]
+        if self.family.uses_cfg:     # fold CFG onto the batch axis first
+            lat, t, emb, res = fold_cfg(lat, t, emb, res)
+        k = mesh.size
+        if lat.shape[0] % k == 0:
+            v = _shard_rows(mesh, lambda c, l, tt, e, r: mmdit_apply(
+                c["params"], cfg, l, tt, e, r), model_components,
+                (lat, t, emb, res), (0, 0, 0, 1))
+        elif seq_shard_divisor(cfg, k):
+            v = mmdit_apply_seq_sharded([c["params"] for c in model_components],
+                                        cfg, lat, t, emb, res, mesh)
+        else:
+            return None
+        if self.family.uses_cfg:
+            v = combine_cfg_rows(v, guidance)
+        return [{"velocity": chunk} for chunk in _split_rows(v, sizes)]
+
     def cost(self) -> ModelCost:
         f = self.family
         tokens = f.image_tokens + f.text_tokens
@@ -534,23 +606,54 @@ class ControlNet(Model):
     def execute(self, model_components: Dict[str, Any], **kw: Any) -> Dict[str, Any]:
         return self.execute_batch(model_components, [kw])[0]
 
+    @staticmethod
+    def _stack(dev: torch.device,
+               batch_kwargs: List[Dict[str, Any]]) -> Optional[Tuple]:
+        """Stack a cross-request batch onto ``dev``: (lat, cond, t, emb,
+        sizes), in :meth:`residuals`' order, or None when latent shapes
+        disagree."""
+        lats = [kw["latents"] for kw in batch_kwargs]
+        if any(l.shape[1:] != lats[0].shape[1:] for l in lats[1:]):
+            return None
+        sizes = [int(l.shape[0]) for l in lats]
+
+        def cat(name):
+            return torch.cat([kw[name].to(dev) for kw in batch_kwargs], dim=0)
+
+        t = _f32_rows([float(kw["t"]) for kw in batch_kwargs], sizes, dev)
+        return (cat("latents"), cat("cond_latents"), t, cat("prompt_embeds"),
+                sizes)
+
     def execute_batch(
         self, model_components: Dict[str, Any], batch_kwargs: List[Dict[str, Any]]
     ) -> List[Dict[str, Any]]:
         """Stacked cross-request forward; the residuals come back
         layer-major, so each request's rows are split off axis 1."""
-        lats = [kw["latents"] for kw in batch_kwargs]
-        if any(l.shape[1:] != lats[0].shape[1:] for l in lats[1:]):
+        stacked = self._stack(model_components["device"], batch_kwargs)
+        if stacked is None:
             return self._execute_sequential(model_components, batch_kwargs)
-        dev = model_components["device"]
-        sizes = [int(l.shape[0]) for l in lats]
-        lat = torch.cat([l.to(dev) for l in lats], dim=0)
-        cond = torch.cat([kw["cond_latents"].to(dev) for kw in batch_kwargs],
-                         dim=0)
-        emb = torch.cat([kw["prompt_embeds"].to(dev) for kw in batch_kwargs],
-                        dim=0)
-        t = _f32_rows([float(kw["t"]) for kw in batch_kwargs], sizes, dev)
-        res = self.residuals(model_components, lat, cond, t, emb)
+        *args, sizes = stacked
+        res = self.residuals(model_components, *args)
+        return [{"controlnet_residuals": chunk}
+                for chunk in _split_rows(res, sizes, dim=1)]
+
+    def execute_batch_sharded(
+        self,
+        model_components: List[Dict[str, Any]],
+        batch_kwargs: List[Dict[str, Any]],
+        mesh: Any,
+    ) -> Optional[List[Dict[str, Any]]]:
+        """Batch-axis data parallelism for the ControlNet branch: requests
+        split across the slots; the layer-major residual stack comes back
+        gathered on its batch axis (axis 1)."""
+        if any(kw.get("_patches") for kw in batch_kwargs):
+            return None
+        stacked = self._stack(mesh.home, batch_kwargs)
+        if stacked is None or sum(stacked[-1]) % mesh.size:
+            return None
+        *args, sizes = stacked
+        res = _shard_rows(mesh, self.residuals, model_components, args,
+                          (0, 0, 0, 0), out_dim=1)
         return [{"controlnet_residuals": chunk}
                 for chunk in _split_rows(res, sizes, dim=1)]
 
@@ -610,6 +713,25 @@ class VAEDecode(Model):
                          torch.cat([l.to(dev) for l in lats], dim=0))
         return [{"image": chunk} for chunk in _split_rows(img, sizes)]
 
+    def execute_batch_sharded(
+        self,
+        model_components: List[Dict[str, Any]],
+        batch_kwargs: List[Dict[str, Any]],
+        mesh: Any,
+    ) -> Optional[List[Dict[str, Any]]]:
+        """Replicated-weight parallel decode: the VAE params live on every
+        slot, latent rows split across them."""
+        lats = [kw["latents"] for kw in batch_kwargs]
+        if any(l.shape[1:] != lats[0].shape[1:] for l in lats[1:]):
+            return None
+        sizes = [int(l.shape[0]) for l in lats]
+        if sum(sizes) % mesh.size:
+            return None
+        lat = torch.cat([l.to(mesh.home) for l in lats], dim=0)
+        img = _shard_rows(mesh, lambda c, l: vae_decode(c["params"], l),
+                          model_components, (lat,), (0,))
+        return [{"image": chunk} for chunk in _split_rows(img, sizes)]
+
     def cost(self) -> ModelCost:
         f = self.family
         return ModelCost(
@@ -663,6 +785,23 @@ class VAEEncode(Model):
             return self._execute_sequential(model_components, batch_kwargs)
         sizes = [int(i.shape[0]) for i in imgs]
         lat = vae_encode(model_components["params"], torch.cat(imgs, dim=0))
+        return [{"cond_latents": chunk} for chunk in _split_rows(lat, sizes)]
+
+    def execute_batch_sharded(
+        self,
+        model_components: List[Dict[str, Any]],
+        batch_kwargs: List[Dict[str, Any]],
+        mesh: Any,
+    ) -> Optional[List[Dict[str, Any]]]:
+        """Replicated-weight parallel encode (mirror of VAEDecode)."""
+        imgs = [self._as_tensor(kw["image"], mesh.home) for kw in batch_kwargs]
+        if any(i.shape[1:] != imgs[0].shape[1:] for i in imgs[1:]):
+            return None
+        sizes = [int(i.shape[0]) for i in imgs]
+        if sum(sizes) % mesh.size:
+            return None
+        lat = _shard_rows(mesh, lambda c, i: vae_encode(c["params"], i),
+                          model_components, (torch.cat(imgs, dim=0),), (0,))
         return [{"cond_latents": chunk} for chunk in _split_rows(lat, sizes)]
 
     def cost(self) -> ModelCost:
@@ -809,15 +948,22 @@ class DenoiseSegment(Model):
     def _run(self, comps: Dict[str, Any], batch_kwargs: List[Dict[str, Any]],
              sizes: List[int], steps: int, lat: torch.Tensor,
              emb: torch.Tensor, cond: Optional[torch.Tensor],
-             lora: Optional[Tuple] = None) -> torch.Tensor:
-        """``steps`` Euler steps of the stacked batch, each the ControlNets'
-        residuals at the step's time, one guided backbone forward
-        (per-row adapters when ``lora`` is given) and the shared update.
+             lora: Optional[Tuple] = None,
+             velocity: Optional[Callable[..., torch.Tensor]] = None
+             ) -> torch.Tensor:
+        """``steps`` Euler steps of the stacked batch: each step's guided
+        velocity ``velocity(lat, t, guidance)``, then the shared update.
+        The velocity is one device's (:meth:`_velocity`: the ControlNets'
+        residuals at the step's time and one guided backbone forward, with
+        per-row adapters when ``lora`` is given) unless the caller passes
+        another (the sharded segment's :meth:`_sharded_velocity`).
 
         ``lat`` must be a tensor the segment owns (``_stack``'s copy): under
         ``comps["donate"]`` every step updates it in place."""
+        if velocity is None:
+            velocity = self._velocity(comps, emb, cond, lora)
         step = denoise_step_ if comps.get("donate") else denoise_step
-        dev = comps["backbone"]["device"]
+        dev = lat.device
         cols = {"t_mid": [], "t_cur": [], "t_next": []}
         gs = []
         for kw in batch_kwargs:
@@ -830,25 +976,83 @@ class DenoiseSegment(Model):
         for s in range(steps):
             t, tc, tn = (_f32_rows([c[s] for c in cols[name]], sizes, dev)
                          for name in ("t_mid", "t_cur", "t_next"))
-            res = None
-            for cn, cn_comps in zip(self.cns, comps["cns"]):
-                r = cn.residuals(cn_comps, lat, cond, t, emb)
-                res = r if res is None else res + r
-            v = self.backbone.velocity(comps["backbone"], lat, t, emb, res,
-                                       guidance, lora=lora)
-            lat = step(lat, v, tc, tn)
+            lat = step(lat, velocity(lat, t, guidance), tc, tn)
         return lat
+
+    def _residuals(self, comps: Dict[str, Any], lat: torch.Tensor,
+                   cond: Optional[torch.Tensor], t: torch.Tensor,
+                   emb: torch.Tensor) -> Optional[torch.Tensor]:
+        """The ControlNets' residual stacks at one step, summed in the
+        chain's order (as the combine nodes sum them); None without
+        ControlNets."""
+        res = None
+        for cn, cn_comps in zip(self.cns, comps["cns"]):
+            r = cn.residuals(cn_comps, lat, cond, t, emb)
+            res = r if res is None else res + r
+        return res
+
+    def _velocity(self, comps: Dict[str, Any], emb: torch.Tensor,
+                  cond: Optional[torch.Tensor],
+                  lora: Optional[Tuple] = None) -> Callable[..., torch.Tensor]:
+        """One device's step velocity: the residuals, then one guided
+        backbone forward (per-row adapters when ``lora`` is given)."""
+        def velocity(lat, t, guidance):
+            return self.backbone.velocity(
+                comps["backbone"], lat, t, emb,
+                self._residuals(comps, lat, cond, t, emb), guidance, lora=lora)
+        return velocity
+
+    def _sharded_velocity(self, replicas: List[Dict[str, Any]],
+                          emb: torch.Tensor, cond: Optional[torch.Tensor],
+                          mesh: Any) -> Callable[..., torch.Tensor]:
+        """The step velocity over the submesh's slots.  The CFG pair folds
+        onto the batch axis and the mode follows the shape, as in the JAX
+        package: row parallelism when the folded rows divide k, else
+        sequence sharding with per-layer K/V all-gathers.
+
+        The ControlNets see the COND embedding on every row (the unfused
+        graph computes one residual set and reuses it for both CFG
+        branches).  Under row parallelism their rows are duplicated with
+        the CFG pair and split with the rows, so each slot computes the
+        residuals of its own rows; under sequence sharding they run once,
+        on the home slot, on the latent rows, and each shard takes its
+        token slice of the doubled stack."""
+        cfg: DiTConfig = replicas[0]["backbone"]["cfg"]
+        uses_cfg = self.family.uses_cfg
+
+        def slot(comps, lat, cnd, t, e, e_cn):
+            return mmdit_apply(comps["backbone"]["params"], cfg, lat, t, e,
+                               self._residuals(comps, lat, cnd, t, e_cn))
+
+        def velocity(lat, t, guidance):
+            if lat.shape[0] * (2 if uses_cfg else 1) % mesh.size == 0:
+                lat2, t2, emb2, _ = (fold_cfg(lat, t, emb) if uses_cfg
+                                     else (lat, t, emb, None))
+                cond2 = emb_cn = None
+                if self.cns:
+                    cond2 = torch.cat([cond, cond]) if uses_cfg else cond
+                    emb_cn = torch.cat([emb, emb]) if uses_cfg else emb
+                v = _shard_rows(mesh, slot, replicas,
+                                (lat2, cond2, t2, emb2, emb_cn), (0,) * 5)
+            else:
+                res = self._residuals(replicas[0], lat, cond, t, emb)
+                v = mmdit_apply_seq_sharded(
+                    [c["backbone"]["params"] for c in replicas], cfg,
+                    *(fold_cfg(lat, t, emb, res) if uses_cfg
+                      else (lat, t, emb, res)), mesh)
+            return combine_cfg_rows(v, guidance) if uses_cfg else v
+        return velocity
 
     def execute(self, model_components: Dict[str, Any], **kw: Any) -> Dict[str, Any]:
         return self.execute_batch(model_components, [kw])[0]
 
     def clamp_parallelism(self, batch_size: int, k: int) -> int:
-        """Largest k' <= k with a sharded mode in the JAX package: the
-        folded CFG rows divide k' (row DP), or the patch grid divides k'
-        (sequence sharding).  The scheduler consults it on every plane, so
-        the port's dispatches (and the simulator's numbers) follow the JAX
-        package's; ``LocalBackend`` runs a batch of any k' on its one
-        device."""
+        """Largest k' <= k with a sharded mode: the folded CFG rows divide
+        k' (row DP), or the patch grid divides k' (sequence sharding).  The
+        scheduler consults it on every plane, so the port's dispatches (and
+        the simulator's numbers) follow the JAX package's;
+        ``ShardedBackend`` runs the batch over k' slots, ``LocalBackend``
+        on its one device."""
         rows = batch_size * (2 if self.family.uses_cfg else 1)
         for j in range(k, 0, -1):
             if rows % j == 0 or seq_shard_divisor(self.family.toy, j):
@@ -917,6 +1121,37 @@ class DenoiseSegment(Model):
         stack = _cached_lora_stack(model_components, order, adapters)
         out = self._run(model_components, batch_kwargs, sizes, steps, lat, emb,
                         cond, lora=(stack, _row_idx(per_req, sizes, dev)))
+        return [{"latents": chunk} for chunk in _split_rows(out, sizes)]
+
+    def execute_batch_sharded(
+        self,
+        model_components: List[Dict[str, Any]],
+        batch_kwargs: List[Dict[str, Any]],
+        mesh: Any,
+    ) -> Optional[List[Dict[str, Any]]]:
+        """The whole chunk over the submesh's slots: every step folds the
+        CFG pair onto the batch axis and shards it (rows, or the image
+        tokens: :meth:`_sharded_velocity`); the Euler update runs on the
+        home slot.  Declines (None) when neither the folded rows nor the
+        patch grid divide k; the backend then falls back to the
+        single-device segment."""
+        if any(kw.get("_patches") for kw in batch_kwargs):
+            return None      # backend lifts uniform patches before us
+        steps = self._segment_steps(batch_kwargs)
+        if steps is None or steps <= 0:
+            return None
+        rows = (sum(int(kw["latents"].shape[0]) for kw in batch_kwargs)
+                * (2 if self.family.uses_cfg else 1))
+        if rows % mesh.size and not seq_shard_divisor(self.family.toy,
+                                                      mesh.size):
+            return None
+        # inputs may lie on a previous placement (the home device, or
+        # another submesh after a recovery re-dispatch of a chunked
+        # segment): _stack copies them onto this submesh's home slot
+        lat, emb, cond, sizes = self._stack(mesh.home, batch_kwargs)
+        out = self._run(model_components[0], batch_kwargs, sizes, steps, lat,
+                        emb, cond, velocity=self._sharded_velocity(
+                            model_components, emb, cond, mesh))
         return [{"latents": chunk} for chunk in _split_rows(out, sizes)]
 
     def cost(self) -> ModelCost:

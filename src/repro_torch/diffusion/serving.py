@@ -3,8 +3,12 @@
 :mod:`repro_torch.diffusion.workflows` (ModelSet + Table-2 workflow
 builders), as the JAX package's ``serving`` module does.
 
-The sharded plane's ``_mesh_fn_cache`` and ``_mesh_put`` are not here:
-the sharded plane is not ported yet.
+The JAX package's shim also exports the sharded plane's two helpers.
+``_mesh_put`` places an array on a submesh; its counterpart here is
+``_shard_rows``, which splits a batch over a
+:class:`~repro_torch.core.mesh.Submesh`'s slots with the submesh's
+collectives.  ``_mesh_fn_cache`` caches compiled ``shard_map`` programs;
+the port compiles nothing and has no counterpart.
 """
 
 from repro_torch.diffusion.ops import (
@@ -18,6 +22,7 @@ from repro_torch.diffusion.ops import (
     TextEncoder,
     VAEDecode,
     VAEEncode,
+    _shard_rows,
     _split_rows,
 )
 from repro_torch.diffusion.workflows import (

@@ -42,11 +42,16 @@ def from_numpy(tree: Any, device: Any = "cpu",
 
 
 def to_device(tree: Any, device: Any) -> Any:
-    """The same tree with every tensor leaf on ``device``."""
+    """The same tree with every tensor leaf on ``device`` (the leaf itself
+    where it lies there already) and every ``torch.device`` leaf replaced
+    by ``device``: a model's components name their device with such a
+    leaf, so a moved tree names its new home."""
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_device(v, device) for v in tree)
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
+    if isinstance(tree, torch.device):
+        return torch.device(device)
     return tree

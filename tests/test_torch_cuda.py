@@ -65,6 +65,27 @@ def test_kernel_matches_plain_version(card, shape, causal, window, dtype, atol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (48, 1357, 4429, 64),     # full width, k = 4: 333 text + 4096 / 4 queries
+    (2, 9 + 16, 9 + 64, 64),  # ragged: 9 text tokens, 64 image tokens, k = 4
+    (3, 100, 333, 64),        # ragged query and key tiles
+    (8, 24, 72, 16),          # the toy SD3 backbone at k = 4
+])
+def test_sequence_sharded_shapes_match_plain_version(card, shape):
+    """The rectangular local-query x global-key shapes of the sequence-
+    sharded MMDiT forward (Sq < Sk, non-causal), f32 against the plain
+    version at atol 2e-5."""
+    bh, sq, sk, d = shape
+    r = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(r.standard_normal((bh, n, d)).astype(np.float32))
+               .to(card) for n in (sq, sk, sk))
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, attention_ref(q, k, v), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,causal,window", [
     ((4, 333, 333, 1024), False, None),
     ((2, 333, 333, 1024), True, 70),

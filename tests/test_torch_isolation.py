@@ -73,6 +73,16 @@ PROC_MODULES = [
     "repro_torch.core.supervisor",
 ]
 
+# the sharded plane: device slots and submeshes, the backend, and the
+# sharded forwards of the diffusion models
+MESH_MODULES = [
+    "repro_torch.core.mesh",
+    "repro_torch.core.executor",
+    "repro_torch.diffusion.mmdit",
+    "repro_torch.diffusion.sampler",
+    "repro_torch.diffusion.ops",
+]
+
 _PROBE = """
 import importlib, sys
 
@@ -97,9 +107,10 @@ def _src():
 
 
 @pytest.mark.parametrize("modules", [MODULES, LORA_MODULES, QUANT_MODULES,
-                                     LAUNCH_MODULES, PROC_MODULES],
+                                     LAUNCH_MODULES, PROC_MODULES,
+                                     MESH_MODULES],
                          ids=["main-path", "lora", "quant-rglru", "launch",
-                              "proc"])
+                              "proc", "mesh"])
 def test_port_imports_without_jax_or_repro(modules):
     env = dict(os.environ, PYTHONPATH=_src())
     out = subprocess.run([sys.executable, "-c", _PROBE, *modules], env=env,

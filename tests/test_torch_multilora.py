@@ -125,14 +125,15 @@ def test_text_encoder_apply_with_lora_stack_matches_jax():
 # the system gate: grouped multi-LoRA == folded solo, per request
 # --------------------------------------------------------------------------
 
-def _build_port(ms, multilora, fused=True, backend=None):
+def _build_port(ms, multilora, fused=True, backend=None, n_executors=1):
     """Deterministic patch semantics, as the JAX test's ``_build_system``:
     AsyncLoRAPass is left out, so adapters resolve at dispatch in both the
     solo and the mixed runs (its fold-in step depends on measured wall
     seconds).  Returns the system, its backend (``backend``, by default
-    ``LocalBackend(device="cpu")``) and the adapter models by id."""
+    ``LocalBackend(device="cpu")``, with ``n_executors``) and the adapter
+    models by id."""
     be = backend if backend is not None else tcore.LocalBackend(device="cpu")
-    s = tcore.ServingSystem(n_executors=1, backend=be)
+    s = tcore.ServingSystem(n_executors=n_executors, backend=be)
     passes = ([InlineTrivialPass()] + ([SegmentFusionPass()] if fused else [])
               + [JitCompilePass()])
     s.registry = WorkflowRegistry(tcore.GraphCompiler(passes))
@@ -224,6 +225,33 @@ def test_multilora_parity_proc(port_runs):
         # a warm second wave rides bare staged refs, nothing re-ships
         _run_mixed(s)
         assert be.adapter_ships == 2 and be.adapter_hits >= 2
+
+
+@pytest.mark.parametrize("n_exec", [1, 4], ids=["mixed-batch", "spread"])
+def test_multilora_parity_mesh(port_runs, n_exec):
+    """The three tenants' requests on ``ShardedBackend`` over 4 CPU slots.
+    On one executor they form a batch mixing adapters, which cannot share
+    one replicated parameter set: the backend runs it on the grouped
+    single-device route.  On four idle executors each request runs alone,
+    its adapter folded once and the fold replicated onto the slots of its
+    sharded segment.  Either way every tenant lies within ``PARITY_TOL`` of
+    its folded solo run."""
+    solo, _ = port_runs
+    be = tcore.ShardedBackend(tcore.MeshManager(
+        devices=[torch.device("cpu") for _ in range(4)]))
+    s, _, _ = _build_port(tdiff.ModelSet(tdiff.FAMILIES["sd3"]),
+                          multilora=True, backend=be, n_executors=n_exec)
+    images = _run_mixed(s)
+    if n_exec == 1:
+        assert any(b.multilora for b in s.coordinator.dispatch_log)
+        assert be.multilora_forwards > 0 and be.shard_log == []
+    else:
+        assert be.multilora_forwards == 0
+        assert any(m == "segment:backbone:sd3" and k > 1
+                   for m, _, k, _ in be.shard_log), be.shard_log
+    for (n, _), img in zip(SUBS, images):
+        d = float((img - solo[n]).abs().max())
+        assert d <= PARITY_TOL, (n, d)
 
 
 def test_multilora_fused_equals_unfused(port_runs):

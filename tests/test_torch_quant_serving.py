@@ -98,11 +98,12 @@ def _serve_jax(mode):
     return images, weights
 
 
-def _serve_port(mode, weights, nudge=None, backend=None):
+def _serve_port(mode, weights, nudge=None, backend=None, n_executors=1):
     """The port's images in ``mode`` on carried weights and the JAX
     package's latents (times ``1 + 1e-7 * noise`` with ``nudge`` a seed),
     the system, and the quantized products it ran (on ``backend``, by
-    default ``LocalBackend(device="cpu")``; closed before it returns)."""
+    default ``LocalBackend(device="cpu")``, with ``n_executors``; closed
+    before it returns)."""
     ms = tdiff.ModelSet(tdiff.FAMILIES["sd3"])
     for name, tree in weights.items():
         getattr(ms, name).weights = from_numpy(tree)
@@ -128,7 +129,7 @@ def _serve_port(mode, weights, nudge=None, backend=None):
     try:
         with quant(mode):
             system = tcore.ServingSystem(
-                n_executors=1,
+                n_executors=n_executors,
                 backend=backend or tcore.LocalBackend(device="cpu"))
             system.register(tdiff.make_basic_workflow("sd3", ms=ms))
             reqs = [system.submit("sd3:basic", inputs=dict(inp), arrival=0.0,
@@ -205,6 +206,24 @@ def test_served_image_parity_proc(served, monkeypatch):
     assert be.weight_ships == 3 and be.n_exec_applied == len(be.exec_log)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def test_served_image_parity_mesh(served):
+    """int8 on the sharded plane (4 executors on 4 CPU slots, adaptive
+    parallelism): the segment shards, every stream projection still runs
+    the int8 product, and the images lie within ``SERVED_TOL`` of the JAX
+    package's int8 images, as the single-device ones do."""
+    want, weights, _, _, _ = served["int8"]
+    backend = tcore.ShardedBackend(tcore.MeshManager(
+        devices=[torch.device("cpu") for _ in range(4)]))
+    got, system, calls = _serve_port("int8", weights, backend=backend,
+                                     n_executors=4)
+    assert any(s[0].startswith("segment:") and s[2] > 1
+               for s in backend.shard_log), backend.shard_log
+    assert calls
+    for g, w in zip(got, want):
+        err = rel_err(g, w)
+        assert err <= SERVED_TOL["int8"], err
 
 
 def test_int8_served_image_moves_with_tiny_nudges(served):
