@@ -241,15 +241,50 @@ Phases (any failed check raises, and the script exits non-zero):
    5c, 5n and 5l did not cover, led by the sequence-sharded (48, 1357,
    4429, 64), held against the plain version (f32 atol 2e-5) and timed as
    in phase 5, both bounds included.
+8. The LLM families' serving path (``repro_torch.models``:
+   ``make_prefill_step``, ``make_serve_step``) at the published widths,
+   f32 weights drawn on the card from seeds, once the earlier systems are
+   freed.  The launch counts are set to 0 just before each counted run
+   and read just after.  "rel" is max |difference| / max |reference|.
+   8h. recurrentgemma-2b, all 26 layers: a prefill of (1, 8192) tokens
+   launches ``rglru_scan`` exactly 18 times (8 super-blocks x 2 + 2
+   remainder blocks) at (1, 8192, 2560) and nothing else; last logits
+   finite and within ``LLM_REL`` of the same prefill with the script
+   putting the plain scan in the kernel's place; 64 decode steps from
+   ``init_decode_cache(2, 64)`` each within ``LLM_REL`` of the forward's
+   logits at that position; printed: the prefill's wall (CUDA events,
+   median of 3 after 1 warm-up), one decode step at batch 8 against an
+   8192-deep cache (median of 20), peak memory, and one prefill under the
+   profiler (``rglru_scan``, GEMMs, the attention's device time through
+   a range around every ``gqa_attention`` call, and idle).
+   8w. whisper-tiny, 4 + 4 layers: a prefill of (4, 448) tokens over
+   (4, 1500, 384) frames launches flash attention exactly 4 times (the
+   encoder) at (24, 1500, 64) and nothing else; last logits within
+   ``LLM_REL`` of the same prefill under ``set_flash_attention(False)``;
+   4 decode steps from the encoder's output, finite.  Flash attention at
+   (24, 1500, 1500, 64) is then held against its plain version (f32 atol
+   2e-5) and timed as in phase 5.
+   8d. llama3-8b, all 32 layers: a prefill of (1, 4096) tokens, finite;
+   32 decode steps against a 16384-deep cache (the blockwise decode) and
+   against an 8192-slot ring cache, each within ``LLM_REL`` of the
+   forward; printed: the prefill's wall, one decode step at batch 1
+   against a 32768-deep cache and peak memory.
+   8z. The other seven configs at full width and cut depth (2 layers;
+   xlstm-1.3b 8, one 7:1 super-block; grok-1-314b 1; MoE at capacity
+   factor 8.0): a prefill of (2, 1024) tokens (internvl2-2b with its 256
+   patch embeddings), finite; 16 decode steps within ``LLM_REL`` of the
+   forward.
 
 The phases run in the order 1, 2, 3, 4, 5, 6, 4q, 5q, 6q, 4b, 4c, 5b, 6b,
-5c, 4n, 5n, 4nq, 6n, 7l, 5l, 7p, 7s, 5s.  Before the last two lines, one JSON ``kernels`` line
+5c, 4n, 5n, 4nq, 6n, 7l, 5l, 7p, 7s, 5s, 8h, 8w, 8d, 8z.  Before the last two lines, one JSON ``kernels`` line
 lists every kernel, ``quantize_rows`` (which replaces plain code, not a
 Pallas kernel) among them: its ``launches`` are the count from its own
-path's run (the single-adapter LoRA kernel and ``rglru_scan`` have no
-serving path: 0; ``launches_by_path`` gives each path's count where a
-kernel has several, the sharded plane's under ``sharded``), and each leads with the largest shape its
-path launched, the others under ``other_shapes``.  The line before the last
+path's run (the single-adapter LoRA kernel has no serving path: 0;
+``rglru_scan``'s are phase 8h's prefill; ``launches_by_path`` gives each
+path's count where a kernel has several, the sharded plane's under
+``sharded`` and whisper-tiny's prefill among flash attention's), and each
+leads with the largest shape its path launched (``rglru_scan`` with its
+served shape), the others under ``other_shapes``.  The line before the last
 is the card's name and power limit as nvidia-smi prints them; the last line
 is the JSON result.  Without a CUDA device, or without the repository beside
 it, the script exits non-zero and prints no result.
@@ -1742,6 +1777,409 @@ def sharded_phase(torch, family, cn_weights, card, counters, device="cuda"):
     return shapes, flash, out
 
 
+# ------------------------------------------------------------ LLM families
+
+# phase 8: decode against forward, and the kernels' route against the plain
+# one, relative (max |difference| over max |reference|)
+LLM_REL = 1e-3
+# phase 8's sizes: (batch, tokens) of each run and the cache depths
+LLM_SIZES = {
+    "hybrid_prefill": (1, 8192), "hybrid_decode": (2, 64),
+    "hybrid_timed": (8, 8192),
+    "whisper_prefill": (4, 448), "whisper_decode": 4,
+    "llama_prefill": (1, 4096), "llama_decode": (1, 32),
+    "llama_cache": 16384, "llama_timed_cache": 32768,
+    "other_prefill": (2, 1024), "other_decode": (2, 16),
+}
+# 8z: the other configs at full width, depth cut to 2 layers but these
+OTHER_LAYERS = {"xlstm-1.3b": 8, "grok-1-314b": 1}
+OTHER_ARCHS = ("qwen3-1.7b", "h2o-danube-3-4b", "yi-34b",
+               "granite-moe-1b-a400m", "grok-1-314b", "internvl2-2b",
+               "xlstm-1.3b")
+# what phase 8h's profile sums by kind (the attention separately, through a
+# profiler range around each gqa_attention call)
+HYBRID_PROFILE = {"rglru_scan": ("rglru_scan",), "gemms": GEMM_KERNELS}
+
+
+def rel_inf(a, b, vocab) -> float:
+    """max |a - b| / max |b| over the first ``vocab`` columns of two logit
+    tensors (the padded ones hold -1e9, which would swamp the ratio), in
+    float64 on the CPU."""
+    a, b = a[..., :vocab].double().cpu(), b[..., :vocab].double().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def zero_counts(counters) -> None:
+    for c in counters:
+        c.launches = 0
+
+
+def read_counts(counters) -> dict:
+    return {c.__name__: c.launches for c in counters}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def llm_draw(torch, cfg, seed, device):
+    """The family's parameters, f32, drawn on ``device`` from ``seed``."""
+    from repro_torch.models import get_family
+
+    gen = torch.Generator(device).manual_seed(seed)
+    return get_family(cfg).init(gen, cfg, dtype=torch.float32, device=device)
+
+
+def llm_tokens(torch, cfg, shape, seed, device):
+    gen = torch.Generator(device).manual_seed(seed)
+    return torch.randint(0, cfg.vocab, shape, generator=gen, device=device)
+
+
+def rglru_blocks(cfg) -> int:
+    """The RG-LRU blocks of a hybrid forward: one scan launch each."""
+    n_super, rem = divmod(cfg.n_layers, 3)
+    return 2 * n_super + rem
+
+
+def decode_vs_forward(torch, cfg, params, tokens, cache_len, device,
+                      ring=False) -> float:
+    """Serve ``tokens`` one at a time from a fresh f32 cache ``cache_len``
+    deep and hold each step's logits against the forward's at that
+    position; returns the largest relative difference (raises past
+    ``LLM_REL``)."""
+    from repro_torch.models import get_family, make_serve_step
+
+    fam = get_family(cfg)
+    full = fam.forward(params, cfg, tokens)
+    kw = {"ring": True} if ring else {}
+    cache = fam.init_decode_cache(cfg, tokens.shape[0], cache_len,
+                                  dtype=torch.float32, device=device, **kw)
+    step = make_serve_step(cfg, ring=ring)
+    worst = 0.0
+    for t in range(tokens.shape[1]):
+        logits, cache = step(params, cache, tokens[:, t])
+        worst = max(worst, rel_inf(logits, full[:, t], cfg.vocab))
+    if not worst <= LLM_REL:
+        raise AssertionError(f"{cfg.name}: decode vs forward rel err {worst} "
+                             f"(ring={ring})")
+    return worst
+
+
+def profile_prefill(torch, fn, card, label, kernels, device="cuda") -> dict:
+    """One ``fn()`` under the profiler: busy and idle, the named kernels'
+    device time and shares (as :func:`profile_path`), and the attention's
+    device time: the device span of a ``record_function`` range around
+    every ``gqa_attention`` call of the model stacks (the profiler lists
+    it as a CUDA row of the range's name, which busy time leaves out)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import transformer as tfm
+
+    real = tfm.gqa_attention
+
+    def ranged(*a, **kw):
+        with record_function("llm_attention"):
+            return real(*a, **kw)
+
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device == "cuda" else [])
+    tfm.gqa_attention = ranged
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        tfm.gqa_attention = real
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    attn = sum(r[0] for r in rows if r[2] == "llm_attention")
+    rows = sorted((r for r in rows if r[2] != "llm_attention"), reverse=True)
+    busy = sum(r[0] for r in rows)
+    nm = "not measured"
+    out = {"window": label, "wall_ms": wall_ms,
+           "device_busy_ms": busy if rows else nm,
+           "idle_share": 1 - busy / wall_ms if rows else nm}
+    for name, keys in kernels.items():
+        ms = sum(r[0] for r in rows if any(k in r[2] for k in keys))
+        out[f"{name}_ms"] = ms if rows else nm
+        out[f"{name}_share_of_busy"] = ms / busy if rows else nm
+    out["attention_ms"] = attn if attn > 0 else nm
+    out["attention_share_of_busy"] = attn / busy if attn > 0 else nm
+    out["top_kernels"] = [{"ms": ms, "count": n, "name": name[:90]}
+                          for ms, n, name in rows[:8]]
+    log(f"[profile] {json.dumps(out)}  [{card}]")
+    return out
+
+
+def free(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def llm_phase(torch, card, counters, device="cuda", archs=None,
+              sizes=None) -> dict:
+    """Phase 8: the LLM families' serving path, ``make_prefill_step`` and
+    ``make_serve_step``, at the published widths (``archs``: the port's
+    ``ARCHS`` unless a rehearsal passes others); the checks and printed
+    metrics of the docstring's 8h, 8w, 8d and 8z.  Returns what the
+    ``kernels`` line needs: the launches by path, the shapes the paths gave
+    the kernels and each run's summary."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rglru_scan import ops as rops
+    from repro_torch.kernels.rglru_scan.ref import rglru_ref
+    from repro_torch.models import (
+        get_family,
+        make_prefill_step,
+        make_serve_step,
+        transformer,
+    )
+    from repro_torch.nn.layers import rope_frequencies, set_flash_attention
+
+    archs = archs or ARCHS
+    sz = {**LLM_SIZES, **(sizes or {})}
+    out = {"rglru_shapes": Counter(), "flash_shapes": Counter(), "runs": {}}
+    real_scan, real_flash = rops.rglru_scan, fops.flash_attention
+
+    def scan_rec(a, x):
+        out["rglru_shapes"][tuple(a.shape)] += 1
+        return real_scan(a, x)
+
+    def flash_rec(q, k, v, **kw):
+        out["flash_shapes"][(q.shape[0], q.shape[1], k.shape[1],
+                             q.shape[2])] += 1
+        return real_flash(q, k, v, **kw)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        res = fn()
+        torch.cuda.synchronize()
+        return res, read_counts(counters)
+
+    # ------------------------------------------------ 8h. recurrentgemma-2b
+    cfg = archs["recurrentgemma-2b"]
+    t0 = time.perf_counter()
+    params = llm_draw(torch, cfg, 0, device)
+    torch.cuda.synchronize()
+    log(f"[llm-8h] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, {cfg.n_kv_heads} KV head, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}: "
+        f"{sum(t.numel() for t in _leaves(params)):.4g} parameters f32 drawn "
+        f"in {time.perf_counter() - t0:.2f} s")
+    prefill = make_prefill_step(cfg)
+    batch = {"tokens": llm_tokens(torch, cfg, sz["hybrid_prefill"], 1, device)}
+    rops.rglru_scan = scan_rec
+    try:
+        last, counts = counted(lambda: prefill(params, batch))
+    finally:
+        rops.rglru_scan = real_scan
+    reckoned = rglru_blocks(cfg)
+    scan_shape = (*sz["hybrid_prefill"], cfg.d_model)
+    others = {k: v for k, v in counts.items() if k != "rglru_scan"}
+    if (counts["rglru_scan"] != reckoned or any(others.values())
+            or out["rglru_shapes"] != Counter({scan_shape: reckoned})):
+        raise AssertionError(f"8h prefill: launches {counts} (rglru_scan "
+                             f"reckoned {reckoned}), scan shapes "
+                             f"{dict(out['rglru_shapes'])}")
+    if not bool(torch.isfinite(last).all()):
+        raise AssertionError("8h prefill: last logits not finite")
+    rops.rglru_scan = rglru_ref              # the plain version in its place
+    try:
+        plain, plain_counts = counted(lambda: prefill(params, batch))
+    finally:
+        rops.rglru_scan = real_scan
+    if plain_counts["rglru_scan"]:
+        raise AssertionError(f"8h plain route launched {plain_counts}")
+    e_plain = rel_inf(last, plain, cfg.vocab)
+    if not e_plain <= LLM_REL:
+        raise AssertionError(f"8h: kernel vs plain scan prefill rel {e_plain}")
+    log(f"[llm-8h] prefill {sz['hybrid_prefill']}: rglru_scan launches "
+        f"{counts['rglru_scan']} (reckoned {reckoned}: 2 x {cfg.n_layers // 3} "
+        f"super-blocks + {cfg.n_layers % 3}) at {scan_shape}, other kernels "
+        f"{others}; last logits finite; kernel vs plain scan route rel err "
+        f"{e_plain:.3e} <= {LLM_REL}")
+    dtokens = llm_tokens(torch, cfg, sz["hybrid_decode"], 2, device)
+    e_dec = decode_vs_forward(torch, cfg, params, dtokens,
+                              sz["hybrid_decode"][1], device)
+    log(f"[llm-8h] decode {sz['hybrid_decode'][1]} steps vs forward "
+        f"{sz['hybrid_decode']}: worst rel err {e_dec:.3e} <= {LLM_REL}")
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = cuda_ms(torch, lambda: prefill(params, batch), 3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fam = get_family(cfg)
+    b8, depth = sz["hybrid_timed"]
+    cache = [fam.init_decode_cache(cfg, b8, depth, dtype=torch.float32,
+                                   device=device)]
+    step = make_serve_step(cfg)
+    tok8 = llm_tokens(torch, cfg, (b8,), 3, device)
+
+    def one_step():
+        logits, cache[0] = step(params, cache[0], tok8)
+        return logits
+
+    decode_ms = cuda_ms(torch, one_step, 20)
+    prof = profile_prefill(torch, lambda: prefill(params, batch), card,
+                           f"{cfg.name} prefill {sz['hybrid_prefill']}",
+                           HYBRID_PROFILE, device)
+    out["runs"]["8h"] = {"prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+                         "peak_gib": peak, "kernel_vs_plain_rel": e_plain,
+                         "decode_vs_forward_rel": e_dec, "profile": prof,
+                         "rglru_launches": counts["rglru_scan"]}
+    log(f"[llm-8h] prefill {sz['hybrid_prefill']} wall {prefill_ms:.3f} ms "
+        f"(CUDA events, median of 3 after 1 warm-up); one decode step at "
+        f"batch {b8} against a {depth}-deep cache ({cache[0]['ak'].shape[3]}-"
+        f"slot local-attention ring) {decode_ms:.3f} ms (median of 20); "
+        f"peak memory {peak:.2f} GiB  [{card}]")
+    del params, cache, last, plain, batch
+    free(torch)
+
+    # ------------------------------------------------- 8w. whisper-tiny
+    cfg = archs["whisper-tiny"]
+    params = llm_draw(torch, cfg, 0, device)
+    bw, sw = sz["whisper_prefill"]
+    gen = torch.Generator(device).manual_seed(5)
+    batch = {"tokens": llm_tokens(torch, cfg, (bw, sw), 4, device),
+             "frames": torch.randn((bw, cfg.encoder_seq, cfg.d_model),
+                                   generator=gen, device=device)}
+    prefill = make_prefill_step(cfg)
+    fops.flash_attention = flash_rec
+    try:
+        last, counts = counted(lambda: prefill(params, batch))
+    finally:
+        fops.flash_attention = real_flash
+    flash_shape = (bw * cfg.n_heads, cfg.encoder_seq, cfg.encoder_seq,
+                   cfg.head_dim)
+    reckoned = cfg.encoder_layers + (cfg.n_layers if sw == cfg.encoder_seq
+                                     else 0)
+    others = {k: v for k, v in counts.items() if k != "flash_attention"}
+    if (counts["flash_attention"] != reckoned or any(others.values())
+            or out["flash_shapes"] != Counter({flash_shape: reckoned})):
+        raise AssertionError(f"8w prefill: launches {counts} (flash reckoned "
+                             f"{reckoned}), shapes {dict(out['flash_shapes'])}")
+    prev = set_flash_attention(False)
+    try:
+        plain, plain_counts = counted(lambda: prefill(params, batch))
+    finally:
+        set_flash_attention(prev)
+    if plain_counts["flash_attention"]:
+        raise AssertionError(f"8w plain route launched {plain_counts}")
+    e_plain = rel_inf(last, plain, cfg.vocab)
+    if not (bool(torch.isfinite(last).all()) and e_plain <= LLM_REL):
+        raise AssertionError(f"8w: flash vs plain attention prefill rel "
+                             f"{e_plain}")
+    wall_ms = cuda_ms(torch, lambda: prefill(params, batch), 3, warmup=1)
+    # decode against the encoder's output, as a prefill leaves it
+    cache = get_family(cfg).init_decode_cache(cfg, bw, sw,
+                                              dtype=torch.float32,
+                                              device=device)
+    cache["enc_out"] = transformer.encode(
+        params, cfg, batch["frames"],
+        rope_frequencies(cfg.head_dim, cfg.encoder_seq, cfg.rope_theta,
+                         device=device))
+    step = make_serve_step(cfg)
+    for t in range(sz["whisper_decode"]):
+        logits, cache = step(params, cache, batch["tokens"][:, t])
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"8w decode step {t}: logits not finite")
+    out["runs"]["8w"] = {"prefill_ms": wall_ms, "flash_vs_plain_rel": e_plain,
+                         "flash_launches": counts["flash_attention"]}
+    log(f"[llm-8w] {cfg.name}: prefill tokens {(bw, sw)}, frames "
+        f"{tuple(batch['frames'].shape)}: flash_attention launches "
+        f"{counts['flash_attention']} (reckoned {reckoned}: the encoder's "
+        f"layers) at {flash_shape}, other kernels {others}; last logits vs "
+        f"set_flash_attention(False) rel err {e_plain:.3e} <= {LLM_REL}; "
+        f"prefill wall {wall_ms:.3f} ms (median of 3 after 1 warm-up); "
+        f"{sz['whisper_decode']} decode steps finite  [{card}]")
+    del params, cache, last, plain, batch
+    free(torch)
+
+    # ---------------------------------------------------- 8d. llama3-8b
+    cfg = archs["llama3-8b"]
+    params = llm_draw(torch, cfg, 0, device)
+    prefill = make_prefill_step(cfg)
+    batch = {"tokens": llm_tokens(torch, cfg, sz["llama_prefill"], 1, device)}
+    torch.cuda.reset_peak_memory_stats()
+    last = prefill(params, batch)
+    if not bool(torch.isfinite(last).all()):
+        raise AssertionError("8d prefill: last logits not finite")
+    prefill_ms = cuda_ms(torch, lambda: prefill(params, batch), 3, warmup=1)
+    dtokens = llm_tokens(torch, cfg, sz["llama_decode"], 2, device)
+    e_full = decode_vs_forward(torch, cfg, params, dtokens, sz["llama_cache"],
+                               device)
+    e_ring = decode_vs_forward(torch, cfg, params, dtokens, sz["llama_cache"],
+                               device, ring=True)
+    fam = get_family(cfg)
+    cache = [fam.init_decode_cache(cfg, 1, sz["llama_timed_cache"],
+                                   dtype=torch.float32, device=device)]
+    step = make_serve_step(cfg)
+    tok1 = llm_tokens(torch, cfg, (1,), 3, device)
+
+    def one_step():
+        logits, cache[0] = step(params, cache[0], tok1)
+        return logits
+
+    decode_ms = cuda_ms(torch, one_step, 20)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out["runs"]["8d"] = {"prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+                         "peak_gib": peak, "decode_vs_forward_rel": e_full,
+                         "ring_vs_forward_rel": e_ring}
+    log(f"[llm-8d] {cfg.name}: prefill {sz['llama_prefill']} finite, wall "
+        f"{prefill_ms:.3f} ms (median of 3 after 1 warm-up); decode "
+        f"{sz['llama_decode'][1]} steps vs forward against a "
+        f"{sz['llama_cache']}-deep cache (blockwise decode) worst rel err "
+        f"{e_full:.3e}, ring cache worst {e_ring:.3e} (<= {LLM_REL}); one "
+        f"decode step at batch 1 against a {sz['llama_timed_cache']}-deep "
+        f"cache {decode_ms:.3f} ms (median of 20); peak memory {peak:.2f} "
+        f"GiB  [{card}]")
+    del params, cache, last, batch
+    free(torch)
+
+    # ------------------------- 8z. every other config, full width, cut depth
+    for name in OTHER_ARCHS:
+        cfg = dataclasses.replace(archs[name],
+                                  n_layers=OTHER_LAYERS.get(name, 2))
+        if cfg.n_experts:
+            cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+        params = llm_draw(torch, cfg, 0, device)
+        batch = {"tokens": llm_tokens(torch, cfg, sz["other_prefill"], 1,
+                                      device)}
+        if cfg.frontend_tokens:
+            gen = torch.Generator(device).manual_seed(5)
+            batch["patches"] = torch.randn(
+                (sz["other_prefill"][0], cfg.frontend_tokens, cfg.frontend_dim),
+                generator=gen, device=device)
+        t0 = time.perf_counter()
+        last = make_prefill_step(cfg)(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not bool(torch.isfinite(last).all()):
+            raise AssertionError(f"8z {name} prefill: last logits not finite")
+        dtokens = llm_tokens(torch, cfg, sz["other_decode"], 2, device)
+        e_dec = decode_vs_forward(torch, cfg, params, dtokens,
+                                  sz["other_decode"][1], device)
+        out["runs"][f"8z {name}"] = {"layers": cfg.n_layers,
+                                     "decode_vs_forward_rel": e_dec}
+        log(f"[llm-8z] {name}: {cfg.n_layers} of {archs[name].n_layers} "
+            f"layers, d {cfg.d_model}, vocab {cfg.vocab}"
+            f"{', capacity factor 8.0' if cfg.n_experts else ''}: prefill "
+            f"{sz['other_prefill']}"
+            f"{' + %d patches' % cfg.frontend_tokens if cfg.frontend_tokens else ''}"
+            f" finite, first call {wall:.2f} s; decode {sz['other_decode'][1]} "
+            f"steps vs forward worst rel err {e_dec:.3e} <= {LLM_REL}  [{card}]")
+        del params, last, batch
+        free(torch)
+    return out
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         sys.exit("chip_smoke.py: src/repro_torch not found beside the script; "
@@ -2659,6 +3097,35 @@ def main() -> None:
                               "path": "sharded plane (phase 7s)"})
         log_attention_time(shard_timings[-1], shape, card)
 
+    # ---------- 8. the LLM families at full width, once the earlier systems
+    # are freed: 8h recurrentgemma-2b, 8w whisper-tiny, 8d llama3-8b, 8z
+    # the other configs at cut depth
+    del shard_shapes
+    free(torch)
+    log(f"[llm] device memory held before phase 8: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    llm = llm_phase(torch, card, counters)
+    # flash attention at whisper's encoder shape: against the plain version,
+    # then timed as in phase 5
+    llm_timings = []
+    for shape in sorted(llm["flash_shapes"]):
+        err = check_attention(torch, fa, shape, False, None, f32, 2e-5)
+        errs.append(err)
+        log(f"[kernel] whisper-tiny encoder {shape} float32: max|err| "
+            f"{err:.2e} <= 2e-05")
+        llm_timings.append({**time_attention(torch, fa, shape, f32),
+                            "path": "whisper-tiny encoder (phase 8w)"})
+        log_attention_time(llm_timings[-1], shape, card)
+    # the scan at its served shape: phase 2 checked and timed it already
+    served_scan = {"B=%d,T=%d,D=%d,float32" % s for s in llm["rglru_shapes"]}
+    if not served_scan <= {t["shape"] for t in r_times}:
+        raise AssertionError(f"rglru_scan served at {served_scan}, not timed")
+    for t in r_times:
+        if t["shape"] in served_scan:
+            t["path"] = "recurrentgemma-2b prefill (phase 8h)"
+    r_times.sort(key=lambda t: t["shape"] not in served_scan)
+    log(f"[llm] summary {json.dumps(llm['runs'])}  [{card}]")
+
     # the headline is the largest shape each path really launched
     served = max(path_shapes, key=lambda s: s[0] * s[1] * s[2] * s[3])
     main = timings[shapes.index(served)]
@@ -2683,12 +3150,13 @@ def main() -> None:
               "src/repro/kernels/flash_attention/kernel.py:109", launches,
               max(errs), main,
               [t for t in timings if t is not main] + ml_timings + cn_timings
-              + trace_timings + shard_timings,
+              + trace_timings + shard_timings + llm_timings,
               {"basic": launches, "basic int8": q_flash, "lora": ml_flash,
                "controlnet": cn_flash, "controlnet int8": nq_flash,
                "S1 trace, flags off": trace_flash[0],
                "S1 trace, flags on": trace_flash[1],
-               "sharded": shard_flash}),
+               "sharded": shard_flash,
+               "whisper-tiny prefill": llm["runs"]["8w"]["flash_launches"]}),
         entry("lora_matmul_grouped", lora_src,
               "src/repro/kernels/lora_matmul/kernel.py:172", ml_grouped,
               lora_path_err["grouped"], lora_times[lead_key],
@@ -2709,8 +3177,11 @@ def main() -> None:
               {"basic int8": q_rows, "controlnet int8": nq_rows}),
         entry("rglru_scan",
               "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
-              "src/repro/kernels/rglru_scan/kernel.py:61", 0, rglru_err,
-              r_times[0], r_times[1:]),
+              "src/repro/kernels/rglru_scan/kernel.py:61",
+              llm["runs"]["8h"]["rglru_launches"], rglru_err,
+              r_times[0], r_times[1:],
+              {"recurrentgemma-2b prefill":
+                   llm["runs"]["8h"]["rglru_launches"]}),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

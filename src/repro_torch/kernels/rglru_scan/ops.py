@@ -4,8 +4,9 @@
 CUDA kernel for a CUDA tensor, its plain version for a CPU tensor.  The
 JAX package's tiling and route arguments (``block_t``, ``block_d``,
 ``use_kernel``) have no counterpart: the tensor's device decides the
-route, and the kernel needs no padding.  No path of the system calls it
-yet: the JAX package's hybrid LLM calls the oracle.
+route, and the kernel needs no padding.  The hybrid LLM family
+(:func:`repro_torch.models.hybrid.rglru_block`) calls it once per RG-LRU
+block, where the JAX package's hybrid calls the oracle.
 """
 
 from __future__ import annotations

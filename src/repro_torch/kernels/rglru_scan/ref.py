@@ -31,12 +31,15 @@ def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _scan(a: torch.Tensor, b: torch.Tensor) -> Pair:
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> Pair:
+    """The inclusive associative scan over axis 1 of the pairs ``(a_t, b_t)``
+    under :func:`_combine`: ``jax.lax.associative_scan``'s recursion, also
+    the port's sLSTM scan."""
     n = a.shape[1]
     if n < 2:
         return a, b
     # combine adjacent pairs, scan the half-length sequence recursively
-    odd = _scan(*_combine((a[:, 0:-1:2], b[:, 0:-1:2]),
+    odd = linear_scan(*_combine((a[:, 0:-1:2], b[:, 0:-1:2]),
                           (a[:, 1::2], b[:, 1::2])))
     head = odd if n % 2 else (odd[0][:, :-1], odd[1][:, :-1])
     even = _combine(head, (a[:, 2::2], b[:, 2::2]))
@@ -49,5 +52,5 @@ def rglru_ref(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``[B, T, D]`` decay gates and inputs -> ``[B, T, D]`` states."""
     af = a.float()
     xf = x.float() * torch.sqrt(torch.clamp(1.0 - af * af, min=0.0))
-    _, h = _scan(af, xf)
+    _, h = linear_scan(af, xf)
     return h.to(x.dtype)

@@ -438,6 +438,47 @@ def test_rglru_kernel_matches_plain_version(card, b, t, d):
 
 
 # --------------------------------------------------------------------------
+# the hybrid LLM family: the card against the CPU on the same weights
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_hybrid_llm_on_the_card_matches_cpu(card):
+    """recurrentgemma-2b reduced to 4 layers (one (r, r, a) super-block and
+    a remainder block): the prefill launches ``rglru_scan`` once per RG-LRU
+    block (3) and its last logits, and 8 decode steps, are within 1e-4
+    relative of the CPU run (the plain scan) on the same weights."""
+    import dataclasses
+
+    import repro_torch  # noqa: F401  (turns TF32 off)
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan
+    from repro_torch.models import get_family, make_prefill_step, make_serve_step
+    from repro_torch.weights import to_device
+
+    cfg = dataclasses.replace(ARCHS["recurrentgemma-2b"].reduced(), n_layers=4)
+    fam = get_family(cfg)
+    params = fam.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 64),
+                           generator=torch.Generator().manual_seed(1))
+    want = make_prefill_step(cfg)(params, {"tokens": tokens})
+    gparams = to_device(params, card)
+    before = rglru_scan.launches
+    got = make_prefill_step(cfg)(gparams, {"tokens": tokens.to(card)})
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before + 3
+    assert got.device.type == "cuda" and _rel(got, want) < 1e-4
+    step = make_serve_step(cfg)
+    ccache = fam.init_decode_cache(cfg, 2, 16, dtype=torch.float32,
+                                   device="cpu")
+    gcache = fam.init_decode_cache(cfg, 2, 16, dtype=torch.float32,
+                                   device=card)
+    for t in range(8):
+        want, ccache = step(params, ccache, tokens[:, t])
+        got, gcache = step(gparams, gcache, tokens[:, t].to(card))
+        assert _rel(got, want) < 1e-4, t
+
+
+# --------------------------------------------------------------------------
 # the ControlNet workflows: the card against the CPU on the same weights
 # --------------------------------------------------------------------------
 

@@ -83,6 +83,23 @@ MESH_MODULES = [
     "repro_torch.diffusion.ops",
 ]
 
+# the LLM families' serving path: configs, the model stacks, their step
+# builders and the primitives and kernels they call
+LLM_MODULES = [
+    "repro_torch.configs",
+    "repro_torch.models",
+    "repro_torch.models.base",
+    "repro_torch.models.act_sharding",
+    "repro_torch.models.api",
+    "repro_torch.models.steps",
+    "repro_torch.models.transformer",
+    "repro_torch.models.hybrid",
+    "repro_torch.models.ssm",
+    "repro_torch.nn.layers",
+    "repro_torch.kernels.rglru_scan.ops",
+    "repro_torch.kernels.flash_attention.ops",
+]
+
 _PROBE = """
 import importlib, sys
 
@@ -108,9 +125,9 @@ def _src():
 
 @pytest.mark.parametrize("modules", [MODULES, LORA_MODULES, QUANT_MODULES,
                                      LAUNCH_MODULES, PROC_MODULES,
-                                     MESH_MODULES],
+                                     MESH_MODULES, LLM_MODULES],
                          ids=["main-path", "lora", "quant-rglru", "launch",
-                              "proc", "mesh"])
+                              "proc", "mesh", "llm"])
 def test_port_imports_without_jax_or_repro(modules):
     env = dict(os.environ, PYTHONPATH=_src())
     out = subprocess.run([sys.executable, "-c", _PROBE, *modules], env=env,
