@@ -35,8 +35,14 @@ Phases (any failed check raises, and the script exits non-zero):
    ``quantize_rows_ref`` at every (M, K) the path quantizes and at ragged
    and long rows, with an all-zero row and rows of exact .5 quotients.
    ``rglru_scan`` within 2e-5
-   (``tests/test_kernels.py``'s tolerance) on the JAX package's grid and at
-   RecurrentGemma-2B width (D 2560; B 1, T 8192 and B 8, T 2048).
+   (``tests/test_kernels.py``'s tolerance) on the JAX package's grid, at
+   RecurrentGemma-2B width (D 2560; B 1, T 8192 and B 8, T 2048) and at
+   odd shapes (B 2, T 3001, D 50; B 3, T 1, D 7), each with sigmoid
+   gates and again with long-memory gates (a uniform in [0.99, 0.9999], a
+   carry that crosses the kernel's 256-step tiles), the long-memory runs
+   of kernel and plain version also within ``RGLRU_F64_TOL`` of a float64
+   literal recurrence on the card, and the kernel's bits the same on a
+   second call.
 3. Toy size, card against CPU on the same weights and latents: one
    ``sd3:basic`` request, and the three-tenant mix (two LoRA tenants and
    one basic request, 3 steps) on the multilora scheduler.  Images agree
@@ -413,6 +419,11 @@ SHARD_PROFILE = {"flash_attention": FLASH_KERNELS, "f32_gemms": GEMM_KERNELS,
 # width (D 2560) at two batch and sequence splits
 RGLRU_GRID = [(2, 128, 128), (1, 200, 96), (3, 64, 256), (2, 300, 50)]
 RGLRU_WIDE = [(1, 8192, 2560), (8, 2048, 2560)]
+RGLRU_ODD = [(2, 3001, 50), (3, 1, 7)]
+# against the float64 literal recurrence, absolute and relative: float32
+# roundings add up over the long-memory gates' memory length (7.7e-6 at
+# (1, 8192, 2560) on the H100)
+RGLRU_F64_TOL = 5e-5
 
 
 def log(*a):
@@ -843,18 +854,48 @@ def quant_path(dispatch_log, cfg) -> tuple:
 
 # ------------------------------------------------------------ RG-LRU scan
 
-def rglru_inputs(torch, b, t, d, seed=0):
+def rglru_inputs(torch, b, t, d, seed=0, long_memory=False):
+    """Gates ``a`` as sigmoids of normal draws, or (``long_memory``) uniform
+    in [0.99, 0.9999], RecurrentGemma's published range, where a carry
+    lives for hundreds of steps; inputs ``x`` normal."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return (torch.sigmoid(torch.randn((b, t, d), generator=gen, device="cuda")),
-            torch.randn((b, t, d), generator=gen, device="cuda"))
+    if long_memory:
+        a = 0.99 + 0.0099 * torch.rand((b, t, d), generator=gen, device="cuda")
+    else:
+        a = torch.sigmoid(torch.randn((b, t, d), generator=gen, device="cuda"))
+    return a, torch.randn((b, t, d), generator=gen, device="cuda")
 
 
-def check_rglru(torch, rk, rref, shape, atol=2e-5) -> float:
-    a, x = rglru_inputs(torch, *shape)
+def rglru_literal_f64(torch, a, x):
+    """The recurrence step by step in float64 on the card."""
+    a, x = a.double(), x.double()
+    g = torch.sqrt(torch.clamp(1 - a * a, min=0.0)) * x
+    out, h = torch.empty_like(a), torch.zeros_like(a[:, 0])
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + g[:, t]
+        out[:, t] = h
+    return out
+
+
+def check_rglru(torch, rk, rref, shape, long_memory=False, atol=2e-5):
+    """max |kernel - plain| within ``atol``; for long-memory gates also the
+    kernel's and the plain version's max |err| against the float64
+    recurrence (within ``RGLRU_F64_TOL``), else None; the kernel's bits
+    the same on a second call."""
+    a, x = rglru_inputs(torch, *shape, long_memory=long_memory)
     out = rk.rglru_scan(a, x)
     torch.cuda.synchronize()
-    return close_or_raise(f"rglru_scan {shape}", out, rref.rglru_ref(a, x),
-                          atol, atol)
+    what = f"rglru_scan {shape}{' long memory' if long_memory else ''}"
+    plain = rref.rglru_ref(a, x)
+    err = close_or_raise(what, out, plain, atol, atol)
+    if not torch.equal(rk.rglru_scan(a, x), out):
+        raise AssertionError(f"{what}: a second call gave other bits")
+    if not long_memory:
+        return err, None
+    want = rglru_literal_f64(torch, a, x)
+    return err, [close_or_raise(f"{what} {name} vs float64", got.double(),
+                                want, RGLRU_F64_TOL, RGLRU_F64_TOL)
+                 for name, got in (("kernel", out), ("plain", plain))]
 
 
 def time_rglru(torch, rk, rref, shape, reps=10) -> dict:
@@ -2366,10 +2407,17 @@ def main() -> None:
         rows_checked.add(shape)
         log(f"[kernel] quantize_rows {shape}: bit-identical")
     rglru_err = 0.0
-    for shape in RGLRU_GRID + RGLRU_WIDE:
-        err = check_rglru(torch, rk, rref, shape)
-        rglru_err = max(rglru_err, err)
-        log(f"[kernel] rglru_scan {shape}: max|err| {err:.2e} (atol=rtol=2e-5)")
+    for shape in RGLRU_GRID + RGLRU_WIDE + RGLRU_ODD:
+        for long_memory in (False, True):
+            err, f64 = check_rglru(torch, rk, rref, shape, long_memory)
+            rglru_err = max(rglru_err, err)
+            log(f"[kernel] rglru_scan {shape}"
+                f"{' long memory' if long_memory else ''}: max|err| "
+                f"{err:.2e} (atol=rtol=2e-5)" + (
+                    "" if f64 is None else
+                    f"; against float64: kernel {f64[0]:.2e}, plain "
+                    f"{f64[1]:.2e} (atol=rtol={RGLRU_F64_TOL})")
+                + "; bits repeat")
 
     # -------------------------------------------- 3. toy path, card vs CPU
     cpu_ms = ModelSet(SD3)

@@ -1,21 +1,25 @@
 """RG-LRU scan: the hand-written CUDA kernel and its wrapper.
 
 Replaces the Pallas TPU kernel ``rglru_scan`` / ``_rglru_kernel``
-(``src/repro/kernels/rglru_scan/kernel.py``).  ``csrc/rglru_scan.cu`` runs
-one thread per (batch, channel) through the whole sequence; its header
-note gives the bound and the design.  The source is compiled with ``nvcc``
-for ``sm_90a`` at first use (:mod:`repro_torch.kernels.build`) and bound
-with ``ctypes``.
+(``src/repro/kernels/rglru_scan/kernel.py``).  ``csrc/rglru_scan.cu`` is a
+single-pass scan split over time as well as over (batch, channel): tiles
+of 32 channels by 256 steps, reduced and rescanned in registers, the carry
+chained across tiles by decoupled look-back; its header note gives the
+bound and the design.  The source is compiled with ``nvcc`` for ``sm_90a``
+at first use (:mod:`repro_torch.kernels.build`) and bound with ``ctypes``.
 
 The wrapper takes the plain version (:mod:`.ref`) only for tensors on the
-CPU; for CUDA tensors it launches the kernel or raises.
-``rglru_scan.launches`` counts the kernel launches.  The kernel takes any
-T and D: nothing is padded.
+CPU; for CUDA tensors it launches the kernel or raises.  A call allocates
+the look-back's workspace with ``torch.empty`` on the current stream and
+launches two CUDA kernels (``rglru_scan_init_kernel``, then
+``rglru_scan_kernel``); ``rglru_scan.launches`` counts one launch a call.
+The kernel takes any T and D: nothing is padded.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Any
 
@@ -33,19 +37,20 @@ def _kernel() -> Any:
     """The bound C entry point (builds the library on first call)."""
     global _fwd
     if _fwd is None:
-        fn = ctypes.CDLL(str(build(SOURCE))).rglru_scan_fwd
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        lib = ctypes.CDLL(str(build(SOURCE)))
+        fn = lib.rglru_scan_fwd
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        size = lib.rglru_scan_workspace
+        size.argtypes = [ctypes.c_int] * 3
+        size.restype = ctypes.c_longlong
+        fn.workspace = functools.lru_cache(maxsize=64)(size)
         _fwd = fn
     return _fwd
 
 
-def rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``h_t = a_t h_{t-1} + sqrt(max(1 - a_t^2, 0)) x_t`` over the time
-    axis of ``[B, T, D]`` inputs, ``h_{-1} = 0``."""
-    if a.device.type == "cpu":
-        return rglru_ref(a, x)
+def _refuse(a: torch.Tensor, x: torch.Tensor) -> None:
     for name, t in (("a", a), ("x", x)):
         if t.device != a.device or t.device.type != "cuda":
             raise ValueError(f"rglru_scan: {name} on {t.device}, expected the "
@@ -55,15 +60,32 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"rglru_scan: a and x must be contiguous float32 "
                              f"[B, T, D] tensors of one shape, got {name} "
                              f"{t.dtype} {tuple(t.shape)}")
+    raise ValueError(f"rglru_scan: shape {tuple(a.shape)}; the kernel takes 1 "
+                     f"to 65535 batch rows and non-empty T and D")
+
+
+def rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``h_t = a_t h_{t-1} + sqrt(max(1 - a_t^2, 0)) x_t`` over the time
+    axis of ``[B, T, D]`` inputs, ``h_{-1} = 0``."""
+    if a.device.type == "cpu":
+        return rglru_ref(a, x)
+    # one test on the usual path; the host time of a call shows beside a
+    # 0.1 ms kernel
+    if not (a.is_cuda and x.device == a.device and a.dtype == torch.float32
+            and x.dtype == torch.float32 and a.dim() == 3
+            and x.shape == a.shape and a.is_contiguous()
+            and x.is_contiguous() and 0 < a.shape[0] <= 65535
+            and a.numel() > 0):
+        _refuse(a, x)
     b, t_len, d = a.shape
-    if min(b, t_len, d) == 0 or b > 65535:
-        raise ValueError(f"rglru_scan: shape {tuple(a.shape)}; the kernel "
-                         f"takes 1 to 65535 batch rows and non-empty T and D")
+    fwd = _kernel()
+    dev = a.device.index
     out = torch.empty_like(a)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _kernel()(a.data_ptr(), x.data_ptr(), out.data_ptr(), b, t_len,
-                        d, stream)
+    # the tile counter and the look-back's states and pairs
+    ws = torch.empty(fwd.workspace(b, t_len, d), dtype=torch.uint8,
+                     device=a.device)
+    err = fwd(a.data_ptr(), x.data_ptr(), out.data_ptr(), ws.data_ptr(), b,
+              t_len, d, dev, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"rglru_scan: kernel launch failed with CUDA error "
                            f"{err} (B={b}, T={t_len}, D={d})")

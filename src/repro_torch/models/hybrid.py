@@ -229,7 +229,11 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Dict[str, Any],
                 token: torch.Tensor, **_: Any
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One token per row; writes the recurrent states, conv tails and ring
-    caches in place (in the cache's dtypes)."""
+    caches in place.  A conv tail comes back in the dtype the JAX package's
+    step gives it, ``concatenate([tail, u])``'s: a bf16 tail against f32
+    activations is promoted on the first step, into a new tensor handed
+    back in the returned dict (the caller's stays as it was), and written
+    in place from the next step on."""
     x = params["embed"][token][:, None, :].to(params["lm_head"].dtype)
     acfg = _attn_cfg(cfg)
     pos = int(cache["pos"])
@@ -237,25 +241,28 @@ def decode_step(params: Params, cfg: ArchConfig, cache: Dict[str, Any],
     rope = rope_frequencies(cfg.head_dim, win, cfg.rope_theta,
                             device=x.device)
     n_super, rem = divmod(cfg.n_layers, len(PATTERN))
+    new = {**cache, "pos": pos + 1}
 
-    def recur(p, x, h, tail):
-        x, (hj, tj) = rglru_block_decode(p, x, cfg, (h, tail))
-        h.copy_(hj)
-        tail.copy_(tj)
+    def recur(p, x, h_key, tail_key, idx):
+        x, (hj, tj) = rglru_block_decode(p, x, cfg, (new[h_key][idx],
+                                                     new[tail_key][idx]))
+        for key, value in ((h_key, hj), (tail_key, tj)):
+            if new[key].dtype != value.dtype:
+                new[key] = new[key].to(value.dtype)
+            new[key][idx].copy_(value)
         return x
 
     for si in range(n_super):
         rp = tfm.layer(params["rglru"], si)
         for j in range(2):
-            x = recur(tfm.layer(rp, j), x, cache["h"][si, j],
-                      cache["tail"][si, j])
+            x = recur(tfm.layer(rp, j), x, "h", "tail", (si, j))
         a0 = tfm.layer(tfm.layer(params["attn"], si), 0)
         x = tfm._decode_attn_ring(a0, x, acfg, rope, pos, cache["ak"][si, 0],
                                   cache["av"][si, 0])
         x = tfm._mlp(a0, x, acfg)
     for ri in range(rem):
-        x = recur(tfm.layer(params["rem_rglru"], ri), x, cache["h_rem"][ri],
-                  cache["tail_rem"][ri])
+        x = recur(tfm.layer(params["rem_rglru"], ri), x, "h_rem", "tail_rem",
+                  ri)
     x = rms_norm(x, params["final_norm"])
     logits = mask_vocab((x @ params["lm_head"])[:, 0], cfg.vocab)
-    return logits, {**cache, "pos": pos + 1}
+    return logits, new

@@ -437,6 +437,44 @@ def test_rglru_kernel_matches_plain_version(card, b, t, d):
         rglru_scan(a.double(), x.double())
 
 
+def literal_f64(a, x):
+    """The recurrence step by step in float64 on the inputs' device."""
+    a, x = a.double(), x.double()
+    g = torch.sqrt(torch.clamp(1 - a * a, min=0.0)) * x
+    out, h = torch.empty_like(a), torch.zeros_like(a[:, 0])
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + g[:, t]
+        out[:, t] = h
+    return out
+
+
+# Long memory: a uniform in [0.99, 0.9999] (RecurrentGemma's published
+# initialisation), so a carry lives for hundreds of steps and crosses the
+# kernel's 256-step tiles.  Kernel against plain at 2e-5; both against the
+# float64 literal recurrence at 5e-5 absolute and relative (float32
+# roundings add up over the memory length: 7.7e-6 at (1, 8192, 2560) on the
+# H100).
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,d", [(1, 8192, 2560), (8, 2048, 2560),
+                                   (2, 3001, 50), (3, 1, 7)])
+def test_rglru_kernel_long_memory(card, b, t, d):
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan
+    from repro_torch.kernels.rglru_scan.ref import rglru_ref
+
+    gen = torch.Generator(device=card).manual_seed(5)
+    a = 0.99 + 0.0099 * torch.rand((b, t, d), generator=gen, device=card)
+    x = torch.randn((b, t, d), generator=gen, device=card)
+    out = rglru_scan(a, x)
+    torch.cuda.synchronize()
+    plain = rglru_ref(a, x)
+    torch.testing.assert_close(out, plain, atol=2e-5, rtol=2e-5)
+    want = literal_f64(a, x)
+    for got in (out, plain):
+        torch.testing.assert_close(got.double(), want, atol=5e-5, rtol=5e-5)
+    # the look-back folds its carry in one order: the same bits every call
+    assert torch.equal(rglru_scan(a, x), out)
+
+
 # --------------------------------------------------------------------------
 # the hybrid LLM family: the card against the CPU on the same weights
 # --------------------------------------------------------------------------

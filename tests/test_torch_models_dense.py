@@ -97,15 +97,26 @@ def check_forward(name, jcfg, tcfg, seed=0):
     return jparams, tparams
 
 
-def check_decode(name, jcfg, tcfg, jparams, tparams, ring=False, seed=0):
-    """``STEPS`` serve steps from a fresh cache, logits at every step."""
+def cache_dtypes(cache) -> dict:
+    """Each cache key's dtype by name; ``pos`` is left out (the port keeps
+    it a Python int, the JAX package an int32 scalar)."""
+    return {k: str(v.dtype).replace("torch.", "") for k, v in cache.items()
+            if k != "pos"}
+
+
+def check_decode(name, jcfg, tcfg, jparams, tparams, ring=False, seed=0,
+                 dtype="float32"):
+    """``STEPS`` serve steps from a fresh cache of ``dtype`` (the two
+    packages' ``init_decode_cache`` argument), logits at every step and,
+    after each step, every cache key in the reference's dtype."""
     jfam, tfam = jax_family(jcfg), get_family(tcfg)
     batch, enc_out = inputs(jcfg, seed)
     kw = dict(ring=True, window=RING_WINDOW) if ring else {}
-    jcache = jfam.init_decode_cache(jcfg, 2, STEPS + 1, dtype=jnp.float32,
+    jcache = jfam.init_decode_cache(jcfg, 2, STEPS + 1,
+                                    dtype=getattr(jnp, dtype), **kw)
+    tcache = tfam.init_decode_cache(tcfg, 2, STEPS + 1,
+                                    dtype=getattr(torch, dtype), device="cpu",
                                     **kw)
-    tcache = tfam.init_decode_cache(tcfg, 2, STEPS + 1, dtype=torch.float32,
-                                    device="cpu", **kw)
     if enc_out is not None:     # the encoder's output, as a prefill leaves it
         jcache["enc_out"] = jnp.asarray(enc_out)
         tcache["enc_out"] = torch.from_numpy(enc_out.copy())
@@ -116,7 +127,9 @@ def check_decode(name, jcfg, tcfg, jparams, tparams, ring=False, seed=0):
         want, jcache = jstep(jparams, jcache, jnp.asarray(tok))
         got, tcache = tstep(tparams, tcache, torch.from_numpy(tok).long())
         assert rel(got, want, jcfg.vocab) <= REL, (
-            name, "ring" if ring else "full", t, rel(got, want, jcfg.vocab))
+            name, "ring" if ring else "full", dtype, t,
+            rel(got, want, jcfg.vocab))
+        assert cache_dtypes(tcache) == cache_dtypes(jcache), (name, dtype, t)
     assert int(tcache["pos"]) == int(jcache["pos"]) == STEPS
 
 
