@@ -6,7 +6,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failed check raises, and the script exits non-zero):
 
 1. Card: name and power limit, versions, and the build of every CUDA
-   kernel from the checkout's sources (one ``nvcc`` per source, all five
+   kernel from the checkout's sources (one ``nvcc`` per source, all six
    started together, into ``build/``), with ptxas's registers and spills;
    every instantiation of the int8 route's two kernels is listed by name
    and must spill nothing.
@@ -281,14 +281,49 @@ Phases (any failed check raises, and the script exits non-zero):
    patch embeddings), finite; 16 decode steps within ``LLM_REL`` of the
    forward.
 
+9. The training path (``repro_torch.train.train``: the data pipeline,
+   ``make_train_step``, AdamW, checkpoints) at the published widths, f32,
+   once phase 8's models are freed; the launch counts are set to 0 just
+   before each step and read just after it.  Each run: the first step's
+   loss and every leaf's gradient through the kernels against the same
+   step through the plain route (``TRAIN_REL``, max |difference| over max
+   |reference| per leaf; no leaf all zero where the plain route's is
+   not), and whether a second computation gives the same bits; 3 AdamW
+   steps of ``train()`` with a checkpoint after step 2, each step's
+   launches equal to the reckoned counts, the losses finite; a fresh
+   ``train()`` restores the checkpoint and takes step 3 with parameters
+   bit-identical to the uninterrupted run's; printed: the step walls
+   (median; the data draw and host work included, the checkpoint's save
+   timed apart), tok/s, peak memory, and one step under the profiler
+   (GEMMs, flash or RG-LRU forward and backward kernels, the optimizer's
+   and the attention's device spans through ranges, idle).
+   9w. whisper-tiny as published (4 + 4 layers, d 384, 6 heads of 64,
+   1500 frames) at (4, 448): flash attention 4 forward and 4 backward
+   launches a step (the encoder, not rematerialised); the plain route is
+   ``set_flash_attention(False)``.  The backward kernel alone at (24,
+   1500, 1500, 64) against ``attention_bwd_ref`` (``FLASH_BWD_TOL``), the
+   same bits twice, and timed as in phase 5 beside its plain version and
+   SDPA's backward.
+   9h. recurrentgemma-2b at full width over 5 layers (one rematerialised
+   (rglru, rglru, attn) super-block and the 2-block remainder) at (1,
+   4096), the JAX package's train_4k length: ``rglru_scan`` 6 forward (2,
+   2 recomputed in the backward, 2) and 4 backward launches a step; the
+   plain route puts ``rglru_ref`` and ``rglru_bwd_ref`` in the kernels'
+   places.  The backward kernel alone at (1, 4096, 2560) on the first
+   backward call's inputs (the model's gates) and on long-memory gates:
+   against ``rglru_bwd_ref`` (``RGLRU_BWD_REL``) and both against the
+   float64 reverse recurrence (``RGLRU_BWD_F64_REL``), the same bits
+   twice, and timed.
+
 The phases run in the order 1, 2, 3, 4, 5, 6, 4q, 5q, 6q, 4b, 4c, 5b, 6b,
-5c, 4n, 5n, 4nq, 6n, 7l, 5l, 7p, 7s, 5s, 8h, 8w, 8d, 8z.  Before the last two lines, one JSON ``kernels`` line
+5c, 4n, 5n, 4nq, 6n, 7l, 5l, 7p, 7s, 5s, 8h, 8w, 8d, 8z, 9w, 9h.  Before the last two lines, one JSON ``kernels`` line
 lists every kernel, ``quantize_rows`` (which replaces plain code, not a
 Pallas kernel) among them: its ``launches`` are the count from its own
 path's run (the single-adapter LoRA kernel has no serving path: 0;
 ``rglru_scan``'s are phase 8h's prefill; ``launches_by_path`` gives each
 path's count where a kernel has several, the sharded plane's under
-``sharded`` and whisper-tiny's prefill among flash attention's), and each
+``sharded``, whisper-tiny's prefill and train run among flash
+attention's; the backward kernels' are phase 9's 3-step runs), and each
 leads with the largest shape its path launched (``rglru_scan`` with its
 served shape), the others under ``other_shapes``.  The line before the last
 is the card's name and power limit as nvidia-smi prints them; the last line
@@ -2221,6 +2256,500 @@ def llm_phase(torch, card, counters, device="cuda", archs=None,
     return out
 
 
+# -------------------------------------------------------------- training
+
+# phase 9: the training path's tolerances, stated before its first run.
+# The kernel route against the plain route (the plain attention through
+# set_flash_attention(False); the plain scan and rglru_bwd_ref in the
+# kernels' places): the first step's loss and each leaf's gradient, max
+# |difference| over max |reference| per leaf (f32 on both routes, other
+# summation orders; the flash forward's 3xTF32 products keep about 20 bits)
+TRAIN_REL = 1e-4
+# the flash backward kernel against attention_bwd_ref on the same inputs:
+# max |difference| <= FLASH_BWD_TOL * max(1, max |reference|)
+FLASH_BWD_TOL = 1e-5
+# the RG-LRU backward kernel against rglru_bwd_ref, max |difference| over
+# max |reference|; both against the float64 literal reverse recurrence
+# (da's slope -a / sqrt(1 - a^2) magnifies the f32 rounding of 1 - a^2 on
+# long-memory gates, for the plain version as for the kernel: 3.6e-5 at
+# (1, 4096, 2560) on the H100, phase 9h's long-memory check)
+RGLRU_BWD_REL = 3e-6
+RGLRU_BWD_F64_REL = 1e-4
+# (batch, tokens) of each run, the hybrid's cut depth and the steps
+TRAIN_SIZES = {"whisper": (4, 448), "hybrid": (1, 4096), "hybrid_layers": 5,
+               "steps": 3}
+# what a profiled step sums by kind (the optimizer through a range around
+# its update, the attention through a range around every gqa_attention)
+TRAIN_PROFILE = {"flash_fwd": FLASH_KERNELS, "flash_bwd": ("flash_bwd_",),
+                 "rglru_fwd": ("rglru_scan_kernel",),
+                 "rglru_bwd": ("rglru_scan_bwd_kernel",),
+                 "rglru_init": ("rglru_scan_init_kernel",),
+                 "gemms": GEMM_KERNELS}
+
+
+def leaf_rel(torch, got, want) -> dict:
+    """max |got - want| / max |want| for each leaf of two gradient trees
+    (float64 on the card), by key path; a leaf whose reference is all 0
+    reads its max |got|."""
+    from repro_torch.train.tree import paths
+
+    ref = dict(paths(want))
+    out = {}
+    for key, g in paths(got):
+        w = ref[key].double()
+        den = float(w.abs().max())
+        out[key] = float((g.double() - w).abs().max()) / (den if den else 1.0)
+    return out
+
+
+def time_flash_bwd(torch, fa, fref, shape, reps=10) -> dict:
+    """The backward kernel at ``shape`` (f32, non-causal): CUDA events,
+    median of ``reps`` after 2 warm-ups, beside its plain version and
+    SDPA's backward.  Bound: the five products of the score's size (S, dP,
+    dV, dK, dQ), 10 BH Sq Sk D operations, against q, k, v, o, dO and the
+    row log-sum-exp read and dq, dk, dv written once; as for the f32
+    forward, at the rate of three TF32 passes (the card's f32-accurate
+    product rate), with the f32 FMA rate's figure beside it
+    (``bound_f32_fma_ms``, on the ``[time]`` line only)."""
+    import torch.nn.functional as F
+
+    bh, sq, sk, d = shape
+    q, k, v = attention_inputs(torch, shape, torch.float32, seed=11)
+    do = torch.randn_like(q)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    nbytes = 4.0 * (4 * bh * sq * d + 4 * bh * sk * d + bh * sq)
+    flops = 10.0 * bh * sq * sk * d
+    bound_ms, bound_by = bound(nbytes, 3 * flops, "tf32")
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs)
+    return {
+        "shape": "BH=%d,Sq=%d,Sk=%d,D=%d,float32" % shape,
+        "ms": cuda_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse,
+                                                            do), reps),
+        "plain_ms": cuda_ms(torch, lambda: fref.attention_bwd_ref(
+            q, k, v, o, lse, do), reps),
+        "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do, retain_graph=True), reps),
+        "library": "torch.autograd.grad of F.scaled_dot_product_attention",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_f32_fma_ms": bound(nbytes, flops, "float32")[0],
+    }
+
+
+def check_flash_bwd(torch, fa, fref, shape) -> float:
+    """dq, dk, dv of the backward kernel against ``attention_bwd_ref``
+    within ``FLASH_BWD_TOL``; the same bits on a second call."""
+    q, k, v = attention_inputs(torch, shape, torch.float32, seed=12)
+    do = torch.randn_like(q)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    want = fref.attention_bwd_ref(q, k, v, o, lse, do)
+    err = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        e = float((g - w).abs().max())
+        if not e <= FLASH_BWD_TOL * max(1.0, float(w.abs().max())):
+            raise AssertionError(f"flash_attention_bwd {shape} {name}: max "
+                                 f"|err| {e}")
+        err = max(err, e)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"flash_attention_bwd {shape}: a second call "
+                             f"gave other bits")
+    return err
+
+
+def rglru_literal_bwd_f64(torch, a, x, h, dh):
+    """(da, dx) by the reverse recurrence step by step in float64."""
+    a, x, h, dh = (t.double() for t in (a, x, h, dh))
+    y = 1 - a * a
+    root = torch.sqrt(torch.clamp(y, min=0.0))
+    slope = torch.where(y > 0, -a / torch.where(y > 0, root, 1.0), 0.0)
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], 1)
+    g = torch.zeros_like(a[:, 0])
+    da, dx = torch.empty_like(a), torch.empty_like(a)
+    for t in range(a.shape[1] - 1, -1, -1):
+        g = dh[:, t] + (a[:, t + 1] * g if t + 1 < a.shape[1] else 0.0)
+        dx[:, t] = g * root[:, t]
+        da[:, t] = g * (h_prev[:, t] + x[:, t] * slope[:, t])
+    return da, dx
+
+
+def check_rglru_bwd(torch, rk, rref, a, x, dh, what) -> dict:
+    """The backward kernel at (a, x, h = scan(a, x), dh) against
+    ``rglru_bwd_ref`` (``RGLRU_BWD_REL``) and both against the float64
+    reverse recurrence (``RGLRU_BWD_F64_REL``); the same bits twice."""
+    h = rk.rglru_scan(a, x)
+    got = rk.rglru_scan_bwd(a, x, h, dh)
+    torch.cuda.synchronize()
+    want = rref.rglru_bwd_ref(a, x, h, dh)
+    lit = rglru_literal_bwd_f64(torch, a, x, h, dh)
+    out = {}
+    for i, name in enumerate(("da", "dx")):
+        den = float(want[i].abs().max())
+        e = float((got[i] - want[i]).abs().max()) / den
+        lden = float(lit[i].abs().max())
+        e64 = [float((r[i].double() - lit[i]).abs().max()) / lden
+               for r in (got, want)]
+        if not (e <= RGLRU_BWD_REL and max(e64) <= RGLRU_BWD_F64_REL):
+            raise AssertionError(f"rglru_scan_bwd {what} {name}: rel {e}, "
+                                 f"vs float64 kernel {e64[0]} plain {e64[1]}")
+        out[name] = {"rel_vs_plain": e, "rel_vs_f64": e64[0],
+                     "plain_rel_vs_f64": e64[1], "max_abs": den}
+    if not all(torch.equal(p, q) for p, q in
+               zip(got, rk.rglru_scan_bwd(a, x, h, dh))):
+        raise AssertionError(f"rglru_scan_bwd {what}: other bits on a second "
+                             f"call")
+    return out
+
+
+def time_rglru_bwd(torch, rk, rref, shape, reps=10) -> dict:
+    """Bound: a, x, h and dh read once and da, dx written once, 24 bytes
+    an element."""
+    a, x = rglru_inputs(torch, *shape, seed=13)
+    dh = torch.randn_like(a)
+    h = rk.rglru_scan(a, x)
+    b, t, d = shape
+    bound_ms, bound_by = bound(24.0 * b * t * d, 12.0 * b * t * d, "float32")
+    return {"shape": "B=%d,T=%d,D=%d,float32" % shape,
+            "ms": cuda_ms(torch, lambda: rk.rglru_scan_bwd(a, x, h, dh), reps),
+            "plain_ms": cuda_ms(torch, lambda: rref.rglru_bwd_ref(a, x, h, dh),
+                                reps),
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def profile_train_step(torch, step_fn, state, batch, card, label,
+                       device="cuda") -> dict:
+    """One train step under the profiler: busy and idle, the named
+    kernels' device time and shares (``TRAIN_PROFILE``), and the device
+    spans of two ``record_function`` ranges, the optimizer's update and
+    every ``gqa_attention`` call (the profiler lists a range as a CUDA row
+    of its name; busy time leaves it out)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import steps
+    from repro_torch.models import transformer as tfm
+
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return call
+
+    real = {"adamw_update": steps.adamw_update,
+            "gqa_attention": tfm.gqa_attention}
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device == "cuda" else [])
+    steps.adamw_update = ranged("train_optimizer", real["adamw_update"])
+    tfm.gqa_attention = ranged("train_attention", real["gqa_attention"])
+    try:
+        fn = step_fn()                  # built with the ranged update
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            out = fn(*state, batch)
+            loss = float(out[2]["loss"])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        steps.adamw_update = real["adamw_update"]
+        tfm.gqa_attention = real["gqa_attention"]
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    spans = {name: sum(r[0] for r in rows if r[2] == name)
+             for name in ("train_optimizer", "train_attention")}
+    rows = sorted((r for r in rows if r[2] not in spans), reverse=True)
+    busy = sum(r[0] for r in rows)
+    nm = "not measured"
+    prof_out = {"window": label, "wall_ms": wall_ms, "loss": loss,
+                "device_busy_ms": busy if rows else nm,
+                "idle_share": 1 - busy / wall_ms if rows else nm}
+    for name, keys in TRAIN_PROFILE.items():
+        ms = sum(r[0] for r in rows if any(k in r[2] for k in keys))
+        prof_out[f"{name}_ms"] = ms if rows else nm
+        prof_out[f"{name}_share_of_busy"] = ms / busy if rows else nm
+    for name, ms in spans.items():
+        key = name.replace("train_", "")
+        prof_out[f"{key}_ms"] = ms if ms > 0 else nm
+        prof_out[f"{key}_share_of_busy"] = ms / busy if ms > 0 else nm
+    prof_out["top_kernels"] = [{"ms": ms, "count": n, "name": name[:90]}
+                               for ms, n, name in rows[:8]]
+    log(f"[profile] {json.dumps(prof_out)}  [{card}]")
+    return prof_out
+
+
+def train_phase(torch, card, counters, device="cuda", archs=None,
+                sizes=None) -> dict:
+    """Phase 9: the training path (``repro_torch.train.train``,
+    ``make_train_step``, AdamW, checkpoints, the data pipeline) at the
+    published widths, the checks and printed metrics of the docstring's
+    9w and 9h.  ``counters`` are the forward and backward kernels'
+    wrappers; ``archs`` and ``sizes`` stand in for a rehearsal.  Returns
+    what the ``kernels`` line needs."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.rglru_scan import kernel as rk
+    from repro_torch.kernels.rglru_scan import ops as rops
+    from repro_torch.kernels.rglru_scan import ref as rref
+    from repro_torch.models import get_family, make_loss_fn, make_train_step
+    from repro_torch.models.steps import _value_and_grad
+    from repro_torch.nn.layers import set_flash_attention
+    from repro_torch.train import TrainConfig, train
+    from repro_torch.train import loop
+    from repro_torch.train.loop import device_batch
+    from repro_torch.train.tree import paths
+
+    archs = archs or ARCHS
+    sz = {**TRAIN_SIZES, **(sizes or {})}
+    out = {"runs": {}, "timings": {}}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        res = fn()
+        torch.cuda.synchronize()
+        return res, read_counts(counters)
+
+    def first_step_grads(cfg, data_cfg, plain):
+        """(loss, grads, launches) of the first step: train()'s initial
+        parameters and first batch, through the kernel route or (``plain``)
+        the script's plain route."""
+        params = get_family(cfg).init(
+            torch.Generator(device).manual_seed(data_cfg.seed), cfg,
+            device=device)
+        batch = device_batch(next(iter(SyntheticLM(cfg, data_cfg))), device)
+        vg = _value_and_grad(make_loss_fn(cfg))
+        (loss, grads), counts = counted(lambda: plain(vg, params, batch))
+        return float(loss), grads, counts
+
+    def run(tag, cfg, data_cfg, kernel_names, plain_route, reckoned):
+        """Steps of ``train()`` with the launches of each step, the first
+        step's gradients against the plain route, the resume from a
+        checkpoint after step 2, walls, peak memory and a profiled step."""
+        steps = sz["steps"]
+        # the first step's loss and gradients, kernel route then plain
+        loss_k, grads_k, counts_k = first_step_grads(
+            cfg, data_cfg, lambda vg, p, b: vg(p, b))
+        for name, want in reckoned.items():
+            if counts_k[name] != want:
+                raise AssertionError(f"9{tag} first step: {name} launched "
+                                     f"{counts_k[name]}, reckoned {want} "
+                                     f"({counts_k})")
+        loss_p, grads_p, counts_p = first_step_grads(cfg, data_cfg,
+                                                     plain_route)
+        if any(counts_p[n] for n in kernel_names):
+            raise AssertionError(f"9{tag} plain route launched {counts_p}")
+        rels = leaf_rel(torch, grads_k, grads_p)
+        worst = max(rels, key=rels.get)
+        dead = [k for (k, g), (_, w) in zip(paths(grads_k), paths(grads_p))
+                if not bool((g != 0).any()) and bool((w != 0).any())]
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        if not (math.isfinite(loss_k) and loss_rel <= TRAIN_REL
+                and rels[worst] <= TRAIN_REL and not dead):
+            raise AssertionError(f"9{tag}: loss {loss_k} vs plain {loss_p} "
+                                 f"(rel {loss_rel}), worst leaf {worst} "
+                                 f"{rels[worst]}, all-zero leaves {dead}")
+        # the same gradients again: the bits of a step repeat
+        _, grads_k2, _ = first_step_grads(cfg, data_cfg,
+                                          lambda vg, p, b: vg(p, b))
+        repeat = all(torch.equal(a, b) for (_, a), (_, b) in
+                     zip(paths(grads_k), paths(grads_k2)))
+        log(f"[train-9{tag}] first step: loss {loss_k:.6f}, plain route "
+            f"{loss_p:.6f} (rel {loss_rel:.3e}); gradients of "
+            f"{len(rels)} leaves, worst rel {rels[worst]:.3e} ({worst}) <= "
+            f"{TRAIN_REL}; no leaf all zero; launches {counts_k}; the "
+            f"gradients' bits repeat: {repeat}")
+        del grads_k, grads_p, grads_k2
+        free(torch)
+
+        # train(): every step counted, then a checkpoint after step 2 (its
+        # seconds timed apart and left out of the step walls)
+        per_step, lines, saves = [], [], []
+        starts, ends = [time.perf_counter()], []
+        real_save = loop.save_checkpoint
+
+        def on_log(line):
+            torch.cuda.synchronize()
+            per_step.append(read_counts(counters))
+            zero_counts(counters)
+            ends.append(time.perf_counter())
+            starts.append(ends[-1])
+            lines.append(line)
+
+        def timed_save(*a, **kw):
+            t0 = time.perf_counter()
+            path = real_save(*a, **kw)
+            saves.append(time.perf_counter() - t0)
+            starts[-1] += saves[-1]       # the next step starts after it
+            return path
+
+        ckpt = tempfile.mkdtemp(prefix=f"train9{tag}_")
+        try:                  # 9h's checkpoint is 21 GB: never left behind
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts(counters)
+            loop.save_checkpoint = timed_save
+            try:
+                whole = train(cfg, data_cfg, TrainConfig(
+                    steps=steps, log_every=1, checkpoint_every=2,
+                    checkpoint_dir=ckpt), log=on_log, device=device)
+            finally:
+                loop.save_checkpoint = real_save
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            walls = [(b - a) * 1e3 for a, b in zip(starts, ends)]
+            for i, counts in enumerate(per_step):
+                for name, want in reckoned.items():
+                    if counts[name] != want:
+                        raise AssertionError(f"9{tag} step {i + 1}: {name} "
+                                             f"launched {counts[name]}, "
+                                             f"reckoned {want} ({counts})")
+            losses = whole["losses"]
+            if not (len(losses) == steps and all(map(math.isfinite, losses))
+                    and losses[0] == loss_k):
+                raise AssertionError(f"9{tag}: losses {losses} (first step "
+                                     f"alone {loss_k})")
+            final = [t.cpu() for _, t in paths(whole["params"])]
+            del whole
+            free(torch)
+            # a fresh train() restores step 2 and takes step 3
+            t0 = time.perf_counter()
+            rlog = []
+            resumed = train(cfg, data_cfg, TrainConfig(
+                steps=steps, log_every=1, checkpoint_dir=ckpt),
+                log=rlog.append, device=device)
+            resume_s = time.perf_counter() - t0
+            same = (rlog[0] == f"restored checkpoint at step {steps - 1}"
+                    and resumed["losses"] == losses[-1:]
+                    and all(torch.equal(a.cpu(), b) for (_, a), b in
+                            zip(paths(resumed["params"]), final)))
+            if not same:
+                raise AssertionError(f"9{tag}: the resumed step 3 differs: "
+                                     f"{rlog[:1]}, losses {resumed['losses']} "
+                                     f"vs {losses[-1:]}")
+            state = (resumed["params"], resumed["opt_state"])
+            del resumed, final
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        tokens = data_cfg.batch_size * data_cfg.seq_len
+        wall = statistics.median(walls)
+        log(f"[train-9{tag}] {steps} AdamW steps of train() at "
+            f"({data_cfg.batch_size}, {data_cfg.seq_len}): losses "
+            f"{[round(l, 6) for l in losses]}; launches each step "
+            f"{per_step[0]}; step walls {[round(w, 1) for w in walls]} ms "
+            f"(median {wall:.1f} ms, data and host included), "
+            f"{tokens / wall * 1e3:,.0f} tok/s; peak memory {peak:.2f} GiB; "
+            f"the loop's lines {lines}; the step-2 checkpoint saved in "
+            f"{saves[0]:.1f} s; a fresh train() restored it and took step 3 "
+            f"in {resume_s:.1f} s: its parameters bit-identical  [{card}]")
+        batch = device_batch(next(iter(SyntheticLM(cfg, data_cfg))), device)
+        prof = profile_train_step(
+            torch, lambda: make_train_step(cfg), state, batch, card,
+            f"{cfg.name} train step ({data_cfg.batch_size}, "
+            f"{data_cfg.seq_len})", device)
+        del state, batch
+        free(torch)
+        return {"losses": losses, "launches_per_step": per_step[0],
+                "launches_total": {n: sum(c[n] for c in per_step)
+                                   for n in per_step[0]},
+                "step_ms": walls, "median_step_ms": wall,
+                "tok_per_s": tokens / wall * 1e3, "peak_gib": peak,
+                "first_loss_rel": loss_rel, "worst_grad_rel": rels[worst],
+                "grad_bits_repeat": repeat, "save_s": saves[0],
+                "resume_s": resume_s,
+                "profile": prof}
+
+    # ------------------------------------------------ 9w. whisper-tiny
+    cfg = archs["whisper-tiny"]
+    bw, sw = sz["whisper"]
+    flash_shape = (bw * cfg.n_heads, cfg.encoder_seq, cfg.encoder_seq,
+                   cfg.head_dim)
+
+    def plain_attention(vg, p, b):
+        prev = set_flash_attention(False)
+        try:
+            return vg(p, b)
+        finally:
+            set_flash_attention(prev)
+
+    out["runs"]["9w"] = run(
+        "w", cfg, DataConfig(batch_size=bw, seq_len=sw, seed=0),
+        ("flash_attention", "flash_attention_bwd"), plain_attention,
+        {"flash_attention": cfg.encoder_layers,
+         "flash_attention_bwd": cfg.encoder_layers,
+         "rglru_scan": 0, "rglru_scan_bwd": 0})
+    err = check_flash_bwd(torch, fa, fref, flash_shape)
+    t = time_flash_bwd(torch, fa, fref, flash_shape)
+    out["timings"]["flash_attention_bwd"] = {**t, "max_abs_err": err,
+                                             "path": "whisper-tiny encoder "
+                                                     "(phase 9w)"}
+    log(f"[kernel] flash_attention_bwd {flash_shape}: max|err| {err:.2e} "
+        f"(<= {FLASH_BWD_TOL} x max(1, max|ref|)); bits repeat")
+    log(f"[time] {json.dumps(t)}  [{card}]")
+    free(torch)
+
+    # ------------------------------- 9h. recurrentgemma-2b, depth cut
+    cfg = dataclasses.replace(archs["recurrentgemma-2b"],
+                              n_layers=sz["hybrid_layers"])
+    bh_, sh = sz["hybrid"]
+    n_super, rem = divmod(cfg.n_layers, 3)
+    seen = {}
+    real_bwd = rops.rglru_scan_bwd
+
+    def bwd_rec(a, x, h, dh):          # the first call's inputs, kept
+        if "inputs" not in seen:
+            seen["inputs"] = (a.detach().clone(), x.detach().clone(),
+                              dh.detach().clone())
+        return real_bwd(a, x, h, dh)
+
+    def plain_scan(vg, p, b):
+        real_fwd = rops.rglru_scan
+        rops.rglru_scan, rops.rglru_scan_bwd = rref.rglru_ref, rref.rglru_bwd_ref
+        try:
+            return vg(p, b)
+        finally:
+            rops.rglru_scan, rops.rglru_scan_bwd = real_fwd, real_bwd
+
+    rops.rglru_scan_bwd = bwd_rec
+    try:
+        out["runs"]["9h"] = run(
+            "h", cfg, DataConfig(batch_size=bh_, seq_len=sh, seed=0),
+            ("rglru_scan", "rglru_scan_bwd"), plain_scan,
+            {"rglru_scan": 4 * n_super + rem, "rglru_scan_bwd": 2 * n_super
+             + rem, "flash_attention": 0, "flash_attention_bwd": 0})
+    finally:
+        rops.rglru_scan_bwd = real_bwd
+    a, x, dh = seen.pop("inputs")
+    checks = {"model gates": check_rglru_bwd(torch, rk, rref, a, x, dh,
+                                             "on the model's gates")}
+    del a, x, dh
+    shape = (bh_, sh, cfg.d_model)
+    a, x = rglru_inputs(torch, *shape, seed=14, long_memory=True)
+    checks["long memory"] = check_rglru_bwd(torch, rk, rref, a, x,
+                                            torch.randn_like(a),
+                                            "long memory")
+    del a, x
+    t = time_rglru_bwd(torch, rk, rref, shape)
+    out["timings"]["rglru_scan_bwd"] = {
+        **t, "path": "recurrentgemma-2b train step (phase 9h)",
+        "max_abs_err": max(c[n]["rel_vs_plain"] * c[n]["max_abs"]
+                           for c in checks.values() for n in ("da", "dx"))}
+    log(f"[kernel] rglru_scan_bwd {shape}: {json.dumps(checks)} (rel <= "
+        f"{RGLRU_BWD_REL} vs plain, <= {RGLRU_BWD_F64_REL} vs float64); "
+        f"bits repeat")
+    log(f"[time] {json.dumps(t)}  [{card}]")
+    free(torch)
+    summary = {tag: {k: v for k, v in run.items() if k != "profile"}
+               for tag, run in out["runs"].items()}
+    log(f"[train] summary {json.dumps(summary)}  [{card}]")
+    return out
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch").is_dir():
         sys.exit("chip_smoke.py: src/repro_torch not found beside the script; "
@@ -2261,7 +2790,8 @@ def main() -> None:
         t0 = time.perf_counter()
         return build.build(source), time.perf_counter() - t0
 
-    sources = (fa.SOURCE, lk.SOURCE, qk.SOURCE, qk.ROWS_SOURCE, rk.SOURCE)
+    sources = (fa.SOURCE, fa.BWD_SOURCE, lk.SOURCE, qk.SOURCE, qk.ROWS_SOURCE,
+               rk.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         built = list(pool.map(timed_build, sources))
@@ -3174,6 +3704,16 @@ def main() -> None:
     r_times.sort(key=lambda t: t["shape"] not in served_scan)
     log(f"[llm] summary {json.dumps(llm['runs'])}  [{card}]")
 
+    # ---------- 9. training at full width, once phase 8's models are freed:
+    # 9w whisper-tiny, 9h recurrentgemma-2b over 5 layers
+    free(torch)
+    log(f"[train] device memory held before phase 9: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    trained = train_phase(torch, card, counters + (fa.flash_attention_bwd,
+                                                   rk.rglru_scan_bwd))
+    train_launches = {tag: run["launches_total"]
+                      for tag, run in trained["runs"].items()}
+
     # the headline is the largest shape each path really launched
     served = max(path_shapes, key=lambda s: s[0] * s[1] * s[2] * s[3])
     main = timings[shapes.index(served)]
@@ -3204,7 +3744,19 @@ def main() -> None:
                "S1 trace, flags off": trace_flash[0],
                "S1 trace, flags on": trace_flash[1],
                "sharded": shard_flash,
-               "whisper-tiny prefill": llm["runs"]["8w"]["flash_launches"]}),
+               "whisper-tiny prefill": llm["runs"]["8w"]["flash_launches"],
+               "whisper-tiny train, 3 steps":
+                   train_launches["9w"]["flash_attention"]}),
+        entry("flash_attention_bwd",
+              "src/repro_torch/kernels/flash_attention/csrc/"
+              "flash_attention_bwd.cu",
+              # no Pallas kernel: the JAX package's custom_vjp backward
+              "src/repro/kernels/flash_attention/ops.py:42",
+              train_launches["9w"]["flash_attention_bwd"],
+              trained["timings"]["flash_attention_bwd"]["max_abs_err"],
+              trained["timings"]["flash_attention_bwd"], [],
+              {"whisper-tiny train, 3 steps":
+                   train_launches["9w"]["flash_attention_bwd"]}),
         entry("lora_matmul_grouped", lora_src,
               "src/repro/kernels/lora_matmul/kernel.py:172", ml_grouped,
               lora_path_err["grouped"], lora_times[lead_key],
@@ -3229,7 +3781,18 @@ def main() -> None:
               llm["runs"]["8h"]["rglru_launches"], rglru_err,
               r_times[0], r_times[1:],
               {"recurrentgemma-2b prefill":
-                   llm["runs"]["8h"]["rglru_launches"]}),
+                   llm["runs"]["8h"]["rglru_launches"],
+               "recurrentgemma-2b train, 3 steps, 5 layers":
+                   train_launches["9h"]["rglru_scan"]}),
+        entry("rglru_scan_bwd",
+              "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+              # no Pallas kernel: the JAX package differentiates the oracle
+              "src/repro/kernels/rglru_scan/ref.py:9",
+              train_launches["9h"]["rglru_scan_bwd"],
+              trained["timings"]["rglru_scan_bwd"]["max_abs_err"],
+              trained["timings"]["rglru_scan_bwd"], [],
+              {"recurrentgemma-2b train, 3 steps, 5 layers":
+                   train_launches["9h"]["rglru_scan_bwd"]}),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

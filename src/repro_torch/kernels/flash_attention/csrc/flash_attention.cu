@@ -67,9 +67,16 @@
 //   tiles, products as f32 FMAs on tiles kept in shared memory with odd row
 //   strides, 64x64 tiles (16x16 at D = 1024).  A rule by shape and type, not
 //   a fallback: nothing falls back at run time.
+//
+// For training, the f32 routes at D <= 64 (the tensor-core tiles and the
+// CUDA-core template) also write each row's log-sum-exp of the scaled,
+// masked scores when the caller passes an lse array (one [BH, Sq] f32 store
+// after the sweep; serving passes none and pays nothing).  The backward
+// kernels (flash_attention_bwd.cu) recompute the probabilities from it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -78,6 +85,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;   // the TPU kernel's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ------------------------------------------------ CUDA-core template
 
@@ -98,8 +106,9 @@ constexpr int smem_floats() {
 template <typename T, int D, int BQ, int BK, int NT, int TC>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-                 float scale, int causal, int has_window, int window) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int sq, int sk, float scale,
+                 int causal, int has_window, int window) {
   constexpr int TR = NT / TC;   // thread rows
   constexpr int RT = BQ / TR;   // tile rows a thread owns
   constexpr int SC = BK / TC;   // score columns a thread owns
@@ -231,6 +240,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RT; ++i) {
     const int qr = q0 + tr + i * TR;
     if (qr >= sq) continue;
+    if (lse != nullptr && tc == 0)   // the backward's row log-sum-exp
+      lse[(size_t)bh * sq + qr] = l[i] == 0.f ? CUDART_INF_F : m[i] + logf(l[i]);
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);   // fully masked rows
 #pragma unroll
     for (int c = 0; c < OC; ++c)
@@ -327,9 +338,9 @@ constexpr int M64_SMEM =
 
 __global__ void __launch_bounds__(M64_NT)
 flash_mma64_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, float* __restrict__ o, int sq,
-                   int sk, float scale_log2, int causal, int has_window,
-                   int window) {
+                   const float* __restrict__ v, float* __restrict__ o,
+                   float* __restrict__ lse, int sq, int sk, float scale_log2,
+                   int causal, int has_window, int window) {
   constexpr int D = 64, BQ = M64_BQ, BK = M64_BK, NT = M64_NT;
   constexpr int STAGES = M64_STAGES, LDK = M64_LDK, LDV = M64_LDV;
   extern __shared__ float4 smem4[];
@@ -504,6 +515,9 @@ flash_mma64_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float l = quad_sum(l_run[i]);
     const float inv = 1.f / (l == 0.f ? 1.f : l);   // fully masked rows
     if (row >= sq) continue;
+    if (lse != nullptr && t == 0)   // the backward's row log-sum-exp
+      lse[(size_t)bh * sq + row] =
+          l == 0.f ? CUDART_INF_F : (m_run[i] + log2f(l)) * kLn2;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<float2*>(ob + (size_t)row * D + 8 * n + 2 * t) =
@@ -761,14 +775,14 @@ cudaError_t allow_smem(const void* kernel, int bytes, unsigned long long& done) 
 }
 
 int launch_mma64(const float* q, const float* k, const float* v, float* o,
-                 int bh, int sq, int sk, float scale, int causal,
+                 float* lse, int bh, int sq, int sk, float scale, int causal,
                  int has_window, int window, cudaStream_t stream) {
   static unsigned long long done = 0;
   cudaError_t err = allow_smem((const void*)flash_mma64_kernel, M64_SMEM, done);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((sq + M64_BQ - 1) / M64_BQ, bh);
   flash_mma64_kernel<<<grid, M64_NT, M64_SMEM, stream>>>(
-      q, k, v, o, sq, sk, scale * kLog2e, causal, has_window, window);
+      q, k, v, o, lse, sq, sk, scale * kLog2e, causal, has_window, window);
   return (int)cudaGetLastError();
 }
 
@@ -792,9 +806,9 @@ int launch_merge(const float* scratch, float* o, int bh, int sq, int sk,
 }
 
 template <typename T, int D, int BQ, int BK, int NT, int TC>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int sq, int sk, float scale, int causal, int has_window, int window,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, int sq, int sk, float scale, int causal, int has_window,
+           int window, cudaStream_t stream) {
   constexpr size_t smem = sizeof(float) * smem_floats<D, BQ, BK>();
   auto kernel = flash_fwd_kernel<T, D, BQ, BK, NT, TC>;
   static unsigned long long done = 0;
@@ -803,27 +817,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   dim3 grid((sq + BQ - 1) / BQ, bh);
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, scale, causal,
-      has_window, window);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, scale,
+      causal, has_window, window);
   return (int)cudaGetLastError();
 }
 
 // the CUDA-core template: small heads at any dtype, every head in bf16
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
-             int sq, int sk, int d, float scale, int causal, int has_window,
-             int window, cudaStream_t st) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int bh, int sq, int sk, int d, float scale,
+             int causal, int has_window, int window, cudaStream_t st) {
   switch (d) {
-    case 8:    return launch<T, 8, 64, 64, 128, 8>(q, k, v, o, bh, sq, sk, scale, causal, has_window, window, st);
-    case 16:   return launch<T, 16, 64, 64, 128, 16>(q, k, v, o, bh, sq, sk, scale, causal, has_window, window, st);
-    case 32:   return launch<T, 32, 64, 64, 128, 16>(q, k, v, o, bh, sq, sk, scale, causal, has_window, window, st);
+    case 8:    return launch<T, 8, 64, 64, 128, 8>(q, k, v, o, lse, bh, sq, sk, scale, causal, has_window, window, st);
+    case 16:   return launch<T, 16, 64, 64, 128, 16>(q, k, v, o, lse, bh, sq, sk, scale, causal, has_window, window, st);
+    case 32:   return launch<T, 32, 64, 64, 128, 16>(q, k, v, o, lse, bh, sq, sk, scale, causal, has_window, window, st);
     default:   break;
   }
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (d == 64)
-      return launch<T, 64, 64, 64, 128, 16>(q, k, v, o, bh, sq, sk, scale, causal, has_window, window, st);
+      return launch<T, 64, 64, 64, 128, 16>(q, k, v, o, lse, bh, sq, sk, scale, causal, has_window, window, st);
     if (d == 1024)
-      return launch<T, 1024, 16, 16, 256, 16>(q, k, v, o, bh, sq, sk, scale, causal, has_window, window, st);
+      return launch<T, 1024, 16, 16, 256, 16>(q, k, v, o, lse, bh, sq, sk, scale, causal, has_window, window, st);
   }
   return -1;
 }
@@ -840,19 +854,24 @@ extern "C" long long flash_attention_scratch_floats(int bh, int sq, int sk,
 
 // q, k, v, o: contiguous [bh, sq|sk, d] device arrays of one dtype
 // (0 = float32, 1 = bfloat16), 16-byte aligned; scratch: at least
-// flash_attention_scratch_floats(...) floats.  Launches on `stream` and
-// returns the CUDA error of the launches (0 on success), or -1 for a head
-// dim or dtype the kernels do not take.
+// flash_attention_scratch_floats(...) floats.  lse: null, or (float32
+// except at D = 1024) a [bh, sq] float32 array that receives each row's
+// log-sum-exp of the scaled, masked scores (+inf for a row that sees no
+// key), which the backward needs; o's bits do not depend on it.  Launches
+// on `stream` and returns the CUDA error of the launches (0 on success), or
+// -1 for a head dim or dtype the kernels do not take.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* scratch, int bh, int sq,
                                    int sk, int d, int dtype, float scale,
                                    int causal, int has_window, int window,
-                                   void* stream) {
+                                   void* lse, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   if (dtype == 0 && d == 64)
     return launch_mma64(static_cast<const float*>(q), static_cast<const float*>(k),
                         static_cast<const float*>(v), static_cast<float*>(o),
-                        bh, sq, sk, scale, causal, has_window, window, st);
+                        lse_f, bh, sq, sk, scale, causal, has_window, window, st);
+  if (lse != nullptr && (dtype != 0 || d == SKV_D)) return -1;
   if (dtype == 0 && d == SKV_D) {
     const int err = launch_partials(
         static_cast<const float*>(q), static_cast<const float*>(k),
@@ -863,11 +882,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                         static_cast<float*>(o), bh, sq, sk, st);
   }
   if (dtype == 0)
-    return dispatch<float>(q, k, v, o, bh, sq, sk, d, scale, causal,
+    return dispatch<float>(q, k, v, o, lse_f, bh, sq, sk, d, scale, causal,
                            has_window, window, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, bh, sq, sk, d, scale, causal,
-                                   has_window, window, st);
+    return dispatch<__nv_bfloat16>(q, k, v, o, nullptr, bh, sq, sk, d, scale,
+                                   causal, has_window, window, st);
   return -1;
 }
 

@@ -1,4 +1,5 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its wrapper.
+"""Flash attention: the hand-written CUDA kernels (forward and backward)
+and their wrappers.
 
 Replaces the Pallas TPU kernel ``flash_attention`` / ``_attn_kernel``
 (``src/repro/kernels/flash_attention/kernel.py``).  The kernel source is
@@ -14,6 +15,16 @@ a CUDA-core template.
 only for tensors on the CPU.  For CUDA tensors it launches the kernels or
 raises: there is no fallback.  ``flash_attention.launches`` counts the
 wrapper's launches, one a call whatever number of CUDA kernels it runs.
+With ``return_lse=True`` (f32 at head dims 8-64, the training routes) the
+forward also returns each row's log-sum-exp, which the backward needs.
+
+:func:`flash_attention_bwd` is the backward: ``csrc/flash_attention_bwd.cu``
+(a row-sum pre-pass, a dK/dV sweep per key tile and a dQ sweep per query
+tile, f32 on the CUDA cores, the same bits every call; its header note
+gives the bound) for CUDA tensors, :func:`attention_bwd_ref` for CPU ones.
+It replaces no Pallas kernel (the JAX package differentiates its plain
+attention); ``flash_attention_bwd.launches`` counts its calls.  The
+``torch.autograd.Function`` that joins the two is in :mod:`.ops`.
 """
 
 from __future__ import annotations
@@ -27,19 +38,24 @@ import torch
 
 from repro_torch.kernels.build import build
 from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref,
+    attention_lse_ref,
     attention_partial_ref,
     attention_ref,
     merge_partials_ref,
 )
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 1024)
+BWD_HEAD_DIMS = (8, 16, 32, 64)  # the backward: f32 at these head dims
 SPLIT_KV_HEAD_DIM = 1024        # f32 at this head dim takes the split-KV route
 SPLIT_KV_CHUNK = 64             # keys per split-KV block
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT, _PTR = ctypes.c_int, ctypes.c_void_p
 
 _lib: Any = None
+_bwd_lib: Any = None
 
 
 def _kernel() -> Any:
@@ -49,7 +65,7 @@ def _kernel() -> Any:
         lib = ctypes.CDLL(str(build(SOURCE)))
         for name, args, res in (
                 ("flash_attention_fwd", [_PTR] * 5 + [_INT] * 5
-                 + [ctypes.c_float] + [_INT] * 3 + [_PTR], _INT),
+                 + [ctypes.c_float] + [_INT] * 3 + [_PTR] * 2, _INT),
                 ("flash_attention_scratch_floats", [_INT] * 5,
                  ctypes.c_longlong),
                 ("flash_attention_split_kv_chunk", [], _INT),
@@ -64,6 +80,30 @@ def _kernel() -> Any:
                                "chunk differs from SPLIT_KV_CHUNK")
         _lib = lib
     return _lib
+
+
+def _bwd_kernel() -> Any:
+    """The bound backward entry point (built on first call)."""
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = ctypes.CDLL(str(build(BWD_SOURCE)))
+        fn = lib.flash_attention_bwd
+        fn.argtypes = ([_PTR] * 10 + [_INT] * 4 + [ctypes.c_float]
+                       + [_INT] * 3 + [_PTR])
+        fn.restype = _INT
+        _bwd_lib = fn
+    return _bwd_lib
+
+
+def check_trainable(q: torch.Tensor) -> None:
+    """Raise unless the backward kernel takes ``q``'s dtype and head dim:
+    f32 at head dims 8-64.  The D = 1024 split-KV route and bf16 have no
+    backward kernel; no training path reaches them."""
+    if q.device.type == "cuda" and (q.dtype != torch.float32
+                                    or q.shape[-1] not in BWD_HEAD_DIMS):
+        raise ValueError(f"flash_attention: no backward kernel for "
+                         f"{q.dtype} at head dim {q.shape[-1]}; it takes "
+                         f"float32 at head dims {BWD_HEAD_DIMS}")
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -104,11 +144,21 @@ def flash_attention(
     causal: bool = False,
     window: Optional[int] = None,
     scale: Optional[float] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> Any:
+    """Attention of ``[BH, S, D]`` q, k, v; with ``return_lse`` the pair
+    ``(out, lse)``, ``lse`` [BH, Sq] f32 each row's log-sum-exp of the
+    scaled, masked scores (+inf for a row that sees no key)."""
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             scale=scale)
+        out = attention_ref(q, k, v, causal=causal, window=window,
+                            scale=scale)
+        if not return_lse:
+            return out
+        return out, attention_lse_ref(q, k, causal=causal, window=window,
+                                      scale=scale)
     _check(q, k, v)
+    if return_lse:
+        check_trainable(q)
     lib = _kernel()
     bh, sq, d = q.shape
     sk = k.shape[1]
@@ -118,18 +168,68 @@ def flash_attention(
     # the split-KV route's partial outputs, row maxima and row sums
     n = lib.flash_attention_scratch_floats(bh, sq, sk, d, dtype)
     scratch = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
+    lse = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             scratch.data_ptr() if n else None, bh, sq, sk, d, dtype, scale,
             int(causal), int(window is not None), int(window or 0),
+            lse.data_ptr() if return_lse else None,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, f"BH={bh}, Sq={sq}, Sk={sk}, D={d}, {q.dtype}")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,            # [BH, Sq, D]
+    k: torch.Tensor,            # [BH, Sk, D]
+    v: torch.Tensor,            # [BH, Sk, D]
+    o: torch.Tensor,            # [BH, Sq, D], the forward's output
+    lse: torch.Tensor,          # [BH, Sq] f32, the forward's row log-sum-exp
+    do: torch.Tensor,           # [BH, Sq, D], the output's gradient
+    *,
+    causal: bool = False,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> tuple:
+    """``(dq, dk, dv)`` of :func:`flash_attention` (f32, head dims 8-64)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, lse, do, scale, causal=causal,
+                                 window=window)
+    _check(q, k, v)
+    check_trainable(q)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    for name, t, shape in (("o", o, q.shape), ("do", do, q.shape),
+                           ("lse", lse, (bh, sq))):
+        if (t.device != q.device or t.dtype != torch.float32
+                or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
+            raise ValueError(f"flash_attention_bwd: {name} must be a "
+                             f"contiguous float32 {tuple(shape)} tensor on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+    fn = _bwd_kernel()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), do.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, sq, sk, d,
+                 scale, int(causal), int(window is not None),
+                 int(window or 0),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, f"backward BH={bh}, Sq={sq}, Sk={sk}, D={d}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
 
 
 # The split-KV route's two passes on their own, so that each kernel can be

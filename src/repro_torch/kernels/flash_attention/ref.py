@@ -1,4 +1,6 @@
-"""Plain PyTorch version of the flash-attention kernel (f32 math)."""
+"""Plain PyTorch versions of the flash-attention kernels (f32 math): the
+forward, its row log-sum-exp, the backward, and the split-KV route's two
+passes."""
 
 from __future__ import annotations
 
@@ -33,6 +35,66 @@ def attention_ref(
     p = torch.where(torch.isnan(p), 0.0, p)       # fully-masked rows
     out = torch.einsum("bqk,bkd->bqd", p, v.float())
     return out.to(q.dtype)
+
+
+def _scores(q, k, causal, window, scale):
+    """Scaled f32 scores [BH, Sq, Sk] and the visibility mask [Sq, Sk]."""
+    sq, sk, d = q.shape[1], k.shape[1], q.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    return s, mask
+
+
+def attention_lse_ref(
+    q: torch.Tensor,            # [BH, Sq, D]
+    k: torch.Tensor,            # [BH, Sk, D]
+    *,
+    causal: bool = False,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Each row's log-sum-exp of the scaled, masked scores, [BH, Sq] f32:
+    what the forward kernel writes for the backward (+inf for a row that
+    sees no key, whose probabilities are all 0)."""
+    s, mask = _scores(q, k, causal, window, scale)
+    lse = torch.logsumexp(s.masked_fill(~mask[None], float("-inf")), dim=-1)
+    return torch.where(torch.isneginf(lse), float("inf"), lse)
+
+
+def attention_bwd_ref(
+    q: torch.Tensor,            # [BH, Sq, D]
+    k: torch.Tensor,            # [BH, Sk, D]
+    v: torch.Tensor,            # [BH, Sk, D]
+    o: torch.Tensor,            # [BH, Sq, D], the forward's output
+    lse: torch.Tensor,          # [BH, Sq], the forward's row log-sum-exp
+    do: torch.Tensor,           # [BH, Sq, D], the output's gradient
+    scale: Optional[float] = None,
+    *,
+    causal: bool = False,
+    window: Optional[int] = None,
+) -> tuple:
+    """Plain version of the backward kernel, the VJP of :func:`attention_ref`
+    written out: P = exp(S - lse) (0 where masked), Di = rowsum(dO o),
+    dV = P^T dO, dS = P (dO v^T - Di), dQ = scale dS k, dK = scale dS^T q.
+    Returns ``(dq, dk, dv)`` in the inputs' dtypes."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    s, mask = _scores(q, k, causal, window, scale)
+    p = torch.where(mask[None], torch.exp(s - lse.float()[..., None]), 0.0)
+    dof = do.float()
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    dp = torch.einsum("bqd,bkd->bqk", dof, v.float())
+    di = (dof * o.float()).sum(dim=-1, keepdim=True)
+    ds = p * (dp - di)
+    dq = torch.einsum("bqk,bkd->bqd", ds, k.float()) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 NEG_INF = -1e30                 # the kernels' running-max floor

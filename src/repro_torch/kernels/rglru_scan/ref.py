@@ -1,5 +1,5 @@
-"""Plain PyTorch version of the RG-LRU scan, in the JAX package's
-formulation: ``h_t = a_t h_{t-1} + sqrt(max(1 - a_t^2, 0)) x_t`` as a
+"""Plain PyTorch versions of the RG-LRU scan and its backward.  The scan
+in the JAX package's formulation: ``h_t = a_t h_{t-1} + sqrt(max(1 - a_t^2, 0)) x_t`` as a
 log-depth associative scan over time of the pairs ``(a_t, gated x_t)``
 under ``(a1, b1) . (a2, b2) = (a1 a2, b1 a2 + b2)``, with the odd/even
 recursion of ``jax.lax.associative_scan``.  Elementwise float32 throughout;
@@ -54,3 +54,29 @@ def rglru_ref(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     xf = x.float() * torch.sqrt(torch.clamp(1.0 - af * af, min=0.0))
     _, h = linear_scan(af, xf)
     return h.to(x.dtype)
+
+
+def rglru_bwd_ref(a: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
+                  dh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(da, dx)`` of :func:`rglru_ref` at ``(a, x)`` with output ``h``
+    and upstream gradient ``dh``, all ``[B, T, D]``: the reverse-time scan
+    ``g_t = dh_t + a_{t+1} g_{t+1}`` (:func:`linear_scan` over the flipped
+    time axis, the coefficients shifted by one step), then
+    ``dx_t = g_t sqrt(max(1 - a_t^2, 0))`` and
+    ``da_t = g_t (h_{t-1} + x_t d sqrt(max(1 - a_t^2, 0)) / da_t)`` with
+    ``h_{-1} = 0``, the derivative ``-a_t / sqrt(1 - a_t^2)`` where
+    ``1 - a_t^2 > 0`` and 0 elsewhere (the max's side): what
+    ``jax.vjp(rglru_ref)`` computes.  float32; the results in ``a``'s and
+    ``x``'s dtypes."""
+    af, xf, hf, gf = a.float(), x.float(), h.float(), dh.float()
+    # g over reversed time: G_s = A_s G_{s-1} + dh_{T-1-s}, A_s = a_{T-s}
+    coef = torch.cat([torch.zeros_like(af[:, :1]), af[:, 1:].flip(1)], 1)
+    _, g = linear_scan(coef, gf.flip(1))
+    g = g.flip(1)
+    y = 1.0 - af * af
+    root = torch.sqrt(torch.clamp(y, min=0.0))
+    slope = torch.where(y > 0, -af / torch.where(y > 0, root, 1.0), 0.0)
+    h_prev = torch.cat([torch.zeros_like(hf[:, :1]), hf[:, :-1]], 1)
+    dx = g * root
+    da = g * (h_prev + xf * slope)
+    return da.to(a.dtype), dx.to(x.dtype)

@@ -1,1 +1,2 @@
-"""Launchers of the PyTorch port: ``python -m repro_torch.launch.serve``."""
+"""Launchers of the PyTorch port: ``python -m repro_torch.launch.serve``
+and ``python -m repro_torch.launch.train``."""

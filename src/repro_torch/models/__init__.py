@@ -1,5 +1,5 @@
 """The LLM families of the assigned architectures (dense, MoE, SSM,
-hybrid, enc-dec, VLM): their serving path."""
+hybrid, enc-dec, VLM): their serving and training paths."""
 
 from repro_torch.models.api import Family, frontend_inputs, get_family
 from repro_torch.models.base import (
@@ -12,7 +12,10 @@ from repro_torch.models.base import (
     InputShape,
 )
 from repro_torch.models.steps import (
+    cross_entropy,
+    make_loss_fn,
     make_prefill_step,
     make_serve_step,
+    make_train_step,
     synthetic_batch,
 )

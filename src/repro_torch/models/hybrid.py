@@ -16,7 +16,11 @@ through :func:`repro_torch.kernels.rglru_scan.ops.rglru`: the CUDA
 ``rglru_scan`` kernel for a CUDA tensor, its plain version (the JAX
 package's associative-scan oracle) for a CPU one.  A forward launches it
 once per RG-LRU block: 18 times for recurrentgemma-2b's 26 layers (8
-super-blocks of two, plus 2 remainder blocks).
+super-blocks of two, plus 2 remainder blocks).  A training step under
+``remat=True`` (the JAX package's ``jax.checkpoint`` around each
+super-block; the remainder blocks are not rematerialised) launches the
+forward again for each super-block's two scans in the backward, and the
+scan's backward kernel once per block.
 
 Local attention uses GQA with ``n_kv_heads=1`` (MQA) and a sliding window,
 so the whole architecture is O(seq).  Parameters keep the JAX package's
@@ -179,20 +183,23 @@ def rglru_block_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             remat: bool = True, last_only: bool = False, **_: Any
             ) -> torch.Tensor:
-    del remat
-    x = params["embed"][tokens].to(params["lm_head"].dtype)
+    # F.embedding: a backward that repeats bit for bit (transformer.forward)
+    x = F.embedding(tokens, params["embed"]).to(params["lm_head"].dtype)
     acfg = _attn_cfg(cfg)
     rope = rope_frequencies(cfg.head_dim, tokens.shape[1], cfg.rope_theta,
                             device=x.device)
     n_super, rem = divmod(cfg.n_layers, len(PATTERN))
-    x = constrain(x)
-    for si in range(n_super):
-        rp = tfm.layer(params["rglru"], si)
+
+    def super_body(rp, ap, x):
         for j in range(2):
             x, _ = rglru_block(tfm.layer(rp, j), x, cfg)
-        a0 = tfm.layer(tfm.layer(params["attn"], si), 0)
-        x = constrain(tfm.block_apply(a0, x, acfg, rope, causal=True,
-                                      window=LOCAL_WINDOW))
+        return constrain(tfm.block_apply(tfm.layer(ap, 0), x, acfg, rope,
+                                         causal=True, window=LOCAL_WINDOW))
+
+    x = constrain(x)
+    for si in range(n_super):
+        x = tfm.remat_apply(super_body, remat, tfm.layer(params["rglru"], si),
+                            tfm.layer(params["attn"], si), x)
     for ri in range(rem):
         x, _ = rglru_block(tfm.layer(params["rem_rglru"], ri), x, cfg)
     x = rms_norm(x, params["final_norm"])

@@ -18,6 +18,10 @@ sLSTM blocks are per-channel scalar recurrences ``c_t = f_t c_{t-1} +
 i_t z_t``, ``h = o * c``, evaluated with the associative scan that the
 port's RG-LRU plain version already mirrors
 (:func:`repro_torch.kernels.rglru_scan.ref.linear_scan`).
+
+``forward(remat=True)`` rematerialises each super-block in the backward
+when grad is enabled, as the JAX package's ``jax.checkpoint`` does; the
+remainder mLSTM blocks are not rematerialised.
 """
 
 from __future__ import annotations
@@ -228,20 +232,23 @@ def slstm_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             remat: bool = True, last_only: bool = False, **_: Any
             ) -> torch.Tensor:
-    del remat
     s = tokens.shape[1]
     pad = (-s) % min(cfg.ssm_chunk, s)
-    x = params["embed"][tokens].to(params["lm_head"].dtype)
+    # F.embedding: a backward that repeats bit for bit (transformer.forward)
+    x = F.embedding(tokens, params["embed"]).to(params["lm_head"].dtype)
     x = F.pad(x, (0, 0, 0, pad))
     n_super, rem = _super_layout(cfg)
-    x = constrain(x)
-    for si in range(n_super):
-        mp = tfm.layer(params["mlstm"], si)
+
+    def super_body(mp, sp, x):
         for j in range(N_M):
             x, _ = mlstm_chunked(tfm.layer(mp, j), x, cfg)
-        s0 = tfm.layer(tfm.layer(params["slstm"], si), 0)
-        x, _ = slstm_forward(s0, x, cfg)
-        x = constrain(x)
+        x, _ = slstm_forward(tfm.layer(sp, 0), x, cfg)
+        return constrain(x)
+
+    x = constrain(x)
+    for si in range(n_super):
+        x = tfm.remat_apply(super_body, remat, tfm.layer(params["mlstm"], si),
+                            tfm.layer(params["slstm"], si), x)
     for ri in range(rem):
         x, _ = mlstm_chunked(tfm.layer(params["rem_mlstm"], ri), x, cfg)
     x = rms_norm(x[:, :s], params["final_norm"])

@@ -1,18 +1,105 @@
-"""Serving step builders per architecture: ``prefill_step`` and
-``serve_step``, plus the synthetic batch of the smoke runs.
+"""Step builders: ``train_step``, ``prefill_step`` and ``serve_step`` per
+architecture, plus the synthetic batch of the smoke runs.
 
-The JAX package's ``make_train_step``, ``make_loss_fn`` and
-``cross_entropy`` belong to training, which the port has not taken yet.
+``make_train_step`` is the training path: the loss over the padded
+vocabulary (whose padded logits hold -1e9), gradients by
+``torch.autograd.grad`` over the parameter tree's leaves, then AdamW or
+Adafactor in place (:mod:`repro_torch.train.optimizer`).  Its kernels
+carry gradients through their ``torch.autograd.Function``s: flash
+attention in whisper's encoder, the RG-LRU scan in the hybrid.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.models.api import get_family
 from repro_torch.models.base import ArchConfig, InputShape
+from repro_torch.train.optimizer import (
+    AdamWConfig,
+    adafactor_update,
+    adamw_update,
+)
+from repro_torch.train.tree import leaves, unflatten
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    return -torch.mean(ll)
+
+
+def make_loss_fn(cfg: ArchConfig) -> Callable:
+    fam = get_family(cfg)
+
+    def loss_fn(params, batch):
+        kwargs = {k: batch[k] for k in ("frames", "patches") if k in batch}
+        logits = fam.forward(params, cfg, batch["tokens"], **kwargs)
+        return cross_entropy(logits, batch["labels"])
+
+    return loss_fn
+
+
+def _value_and_grad(loss_fn: Callable) -> Callable:
+    """``(params, batch) -> (loss, grads)``: ``jax.value_and_grad``'s
+    counterpart.  The leaves enter the loss as detached views that require
+    grad (no copy), and an unused leaf gets a zero gradient, as in JAX."""
+
+    def value_and_grad(params, batch) -> Tuple[torch.Tensor, Any]:
+        xs = [p.detach().requires_grad_() for p in leaves(params)]
+        with torch.enable_grad():
+            loss = loss_fn(unflatten(params, xs), batch)
+            grads = torch.autograd.grad(loss, xs, allow_unused=True,
+                                        materialize_grads=True)
+        return loss.detach(), unflatten(params, list(grads))
+
+    return value_and_grad
+
+
+def make_train_step(
+    cfg: ArchConfig,
+    opt_cfg: Optional[AdamWConfig] = None,
+    accum_steps: int = 1,
+    optimizer: str = "adamw",
+    accum_dtype: Any = None,
+) -> Callable:
+    """Returns ``train_step(params, opt_state, batch) ->
+    (params, opt_state, metrics)``; the parameters and moments are updated
+    in place.  ``accum_steps > 1`` loops over microbatches (the rows of the
+    batch in ``accum_steps`` equal runs), accumulating the gradients in
+    ``accum_dtype`` as the JAX package's scan does (memory-bound archs).
+    ``optimizer='adafactor'`` uses the factored second moment (the 100B+
+    regime); its gradient accumulator defaults to the param dtype."""
+    opt_cfg = opt_cfg or AdamWConfig()
+    grad_fn = _value_and_grad(make_loss_fn(cfg))
+    update = adamw_update if optimizer == "adamw" else adafactor_update
+    if accum_dtype is None and optimizer == "adamw":
+        accum_dtype = torch.float32          # None: the param dtype
+
+    def train_step(params, opt_state, batch):
+        if accum_steps == 1:
+            loss, grads = grad_fn(params, batch)
+        else:
+            acc = [torch.zeros(p.shape, dtype=accum_dtype or p.dtype,
+                               device=p.device) for p in leaves(params)]
+            loss = 0.0
+            for i in range(accum_steps):
+                mb = {k: v.reshape(accum_steps, v.shape[0] // accum_steps,
+                                   *v.shape[1:])[i] for k, v in batch.items()}
+                l, g = grad_fn(params, mb)
+                for a, gg in zip(acc, leaves(g)):
+                    a.add_(gg.to(a.dtype))
+                loss = loss + l
+                del g
+            grads = unflatten(params, [a / accum_steps for a in acc])
+            loss = loss / accum_steps
+        params, opt_state, metrics = update(opt_cfg, params, grads, opt_state)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:

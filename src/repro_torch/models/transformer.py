@@ -12,6 +12,10 @@ encoder-decoder), as the JAX package's ``repro.models.transformer`` does.
   stay proportional to the activated parameters.  Ranks at or past the
   capacity are dropped explicitly, where JAX's ``mode="drop"`` and
   ``mode="fill"`` drop them silently.
+* ``forward(remat=True)`` rematerialises each decoder layer in the
+  backward (:func:`remat_apply`, the JAX package's ``jax.checkpoint``
+  around its scan body) when grad is enabled; the encoder is not
+  rematerialised, as in the JAX package.
 * Decode supports a full KV cache and a ring-buffer sliding-window cache
   (the ``swa_decode_variant``).  A decode step writes the cache tensors in
   place (the JAX package's launcher donates them) and returns the cache
@@ -26,6 +30,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import act_sharding
 from repro_torch.models.act_sharding import constrain
@@ -99,6 +104,16 @@ def init_blocks(gen: torch.Generator, cfg: ArchConfig, lead: Sequence[int],
         p["cwv"] = dense(d, cfg.n_kv_heads * hd)
         p["cwo"] = dense(cfg.n_heads * hd, d)
     return p
+
+
+def remat_apply(fn, remat: bool, *args):
+    """``fn(*args)``, its activations recomputed in the backward instead
+    of kept (``torch.utils.checkpoint``, non-reentrant) when ``remat`` is
+    set and grad is enabled; otherwise a plain call, so a serving forward
+    launches and computes exactly what it would without it."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def layer(tree: Any, i: int) -> Any:
@@ -304,11 +319,16 @@ def forward(
     remat: bool = True,
     last_only: bool = False,
 ) -> torch.Tensor:
-    """Logits ``[B, S, padded_vocab]``.  ``remat`` is accepted for the JAX
-    package's signature; serving keeps no activations for a backward."""
-    del remat
+    """Logits ``[B, S, padded_vocab]``.  ``remat`` rematerialises each
+    decoder layer in the backward when grad is enabled (the training
+    path's memory plan); it computes the same values, and
+    ``make_prefill_step`` passes ``remat=False``."""
     s = tokens.shape[1]
-    x = params["embed"][tokens].to(params["lm_head"].dtype)
+    # F.embedding, not indexing: the same gather, whose backward sums a
+    # repeated token's rows in a fixed order (indexing's index_put_
+    # accumulates in whatever order threads run), so a training
+    # step's gradients repeat bit for bit
+    x = F.embedding(tokens, params["embed"]).to(params["lm_head"].dtype)
     if patches is not None:
         proj = patches @ params["projector"]
         x = torch.cat([proj.to(x.dtype), x], dim=1)
@@ -320,11 +340,13 @@ def forward(
         enc_rope = rope_frequencies(cfg.head_dim, cfg.encoder_seq,
                                     cfg.rope_theta, device=dev)
         enc_out = encode(params, cfg, frames, enc_rope)
+    def body(p, x):
+        return constrain(block_apply(p, x, cfg, rope, enc_out=enc_out,
+                                     causal=True, window=cfg.sliding_window))
+
     x = constrain(x)
     for i in range(cfg.n_layers):
-        x = constrain(block_apply(layer(params["blocks"], i), x, cfg, rope,
-                                  enc_out=enc_out, causal=True,
-                                  window=cfg.sliding_window))
+        x = remat_apply(body, remat, layer(params["blocks"], i), x)
     x = rms_norm(x, params["final_norm"])
     if patches is not None:
         x = x[:, -s:]                          # only the text positions

@@ -698,3 +698,192 @@ def test_proc_plane_on_the_card_matches_local(card, monkeypatch):
     pool = AdapterPool(1 << 30, device=card)
     pool.seed("lora:seeded:sd3", comps)
     assert pool._entries["lora:seeded:sd3"]["lora"]["wq_a"].device.type == "cuda"
+
+
+# --------------------------------------------------------------------------
+# the training path: the backward kernels and a train step on the card
+# --------------------------------------------------------------------------
+
+# Flash-attention backward: dq, dk, dv against attention_bwd_ref on the same
+# inputs (and the kernel's own lse) within 1e-5 of max(1, max |ref|) (f32
+# FMAs summed in another order), the same bits on a second call.
+FLASH_BWD_GRID = [
+    ((2, 128, 128, 64), False, None),
+    ((2, 256, 256, 32), True, None),
+    ((1, 200, 200, 16), True, 64),
+    ((1, 64, 256, 64), False, None),
+    ((2, 100, 300, 8), False, 128),
+    ((3, 500, 500, 64), True, None),
+    ((2, 300, 300, 64), True, 37),
+    ((1, 200, 150, 64), True, 1),      # rows 150.. see no key
+    ((24, 1500, 1500, 64), False, None),  # whisper-tiny's encoder
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,window", FLASH_BWD_GRID)
+def test_flash_attention_bwd_matches_plain_version(card, shape, causal, window):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref,
+        attention_lse_ref,
+    )
+
+    bh, sq, sk, d = shape
+    r = np.random.default_rng(7)
+    q, k, v, do = (torch.from_numpy(r.standard_normal((bh, n, d))
+                                    .astype(np.float32)).to(card)
+                   for n in (sq, sk, sk, sq))
+    out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                               return_lse=True)
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal,
+                                            window=window))
+    want_lse = attention_lse_ref(q, k, causal=causal, window=window)
+    seen = torch.isfinite(want_lse)
+    assert torch.equal(torch.isinf(lse), ~seen)
+    torch.testing.assert_close(lse[seen], want_lse[seen], atol=1e-5, rtol=1e-5)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                              window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                             window=window)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * max(1.0, float(w.abs().max()))
+    again = flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                window=window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_flash_autograd_on_the_card_launches_the_backward_kernel(card):
+    """mha with inputs that need gradients: one forward and one backward
+    launch, gradients within 1e-5 of autograd through the plain version;
+    bf16 and head dim 1024 have no backward kernel and raise."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ops import mha
+
+    gen = torch.Generator(device=card).manual_seed(8)
+    q, k, v, do = (torch.randn((2, 300, 6, 64), generator=gen, device=card)
+                   for _ in range(4))
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fk.flash_attention.launches, fk.flash_attention_bwd.launches)
+    grads = torch.autograd.grad(mha(*xs), xs, do)
+    torch.cuda.synchronize()
+    assert (fk.flash_attention.launches - before[0],
+            fk.flash_attention_bwd.launches - before[1]) == (1, 1)
+    ys = [t.clone().requires_grad_() for t in (q, k, v)]
+    flat = [y.permute(0, 2, 1, 3).reshape(12, 300, 64) for y in ys]
+    plain = attention_ref(*flat).reshape(2, 6, 300, 64).permute(0, 2, 1, 3)
+    want = torch.autograd.grad(plain, ys, do)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+    for dt, d in ((torch.bfloat16, 64), (torch.float32, 1024)):
+        t = torch.randn((1, 40, 2, d), device=card).to(dt).requires_grad_()
+        with pytest.raises(ValueError, match="no backward kernel"):
+            mha(t, t, t)
+
+
+# RG-LRU backward: against rglru_bwd_ref within 3e-6 relative (max |diff|
+# over max |ref|), and on long-memory gates both against the float64 literal
+# reverse recurrence within 1e-4 relative (da's slope -a / sqrt(1 - a^2)
+# magnifies the rounding of 1 - a^2, for the plain version as for the
+# kernel: 3.6e-5 at (1, 4096, 2560) on the H100, chip_smoke.py phase 9h).
+def literal_bwd_f64(a, x, h, dh):
+    a, x, h, dh = (t.double() for t in (a, x, h, dh))
+    y = 1 - a * a
+    root = torch.sqrt(torch.clamp(y, min=0.0))
+    slope = torch.where(y > 0, -a / torch.where(y > 0, root, 1.0), 0.0)
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], 1)
+    g, da, dx = torch.zeros_like(a[:, 0]), torch.empty_like(a), torch.empty_like(a)
+    for t in range(a.shape[1] - 1, -1, -1):
+        g = dh[:, t] + (a[:, t + 1] * g if t + 1 < a.shape[1] else 0.0)
+        dx[:, t] = g * root[:, t]
+        da[:, t] = g * (h_prev[:, t] + x[:, t] * slope[:, t])
+    return da, dx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,d", [(2, 128, 128), (1, 200, 96), (2, 300, 50),
+                                   (2, 3001, 50), (3, 1, 7), (1, 4096, 2560)])
+@pytest.mark.parametrize("long_memory", [False, True])
+def test_rglru_bwd_kernel_matches_plain_version(card, b, t, d, long_memory):
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan, rglru_scan_bwd
+    from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref
+
+    gen = torch.Generator(device=card).manual_seed(9)
+    if long_memory:
+        a = 0.99 + 0.0099 * torch.rand((b, t, d), generator=gen, device=card)
+    else:
+        a = torch.sigmoid(torch.randn((b, t, d), generator=gen, device=card))
+    x, dh = (torch.randn((b, t, d), generator=gen, device=card) for _ in range(2))
+    h = rglru_scan(a, x)
+    before = rglru_scan_bwd.launches
+    got = rglru_scan_bwd(a, x, h, dh)
+    torch.cuda.synchronize()
+    assert rglru_scan_bwd.launches == before + 1
+    want = rglru_bwd_ref(a, x, h, dh)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max() / w.abs().max()) <= 3e-6
+    assert all(torch.equal(p, q) for p, q in zip(got, rglru_scan_bwd(a, x, h, dh)))
+    if long_memory and t <= 4096:
+        cut = slice(0, min(d, 256))           # the float64 loop on 256 channels
+        lit = literal_bwd_f64(*(u[..., cut] for u in (a, x, h, dh)))
+        for ours in (got, want):
+            for g, w in zip(ours, lit):
+                assert float((g[..., cut].double() - w).abs().max()
+                             / w.abs().max()) <= 1e-4
+    with pytest.raises(ValueError, match="float32"):
+        rglru_scan_bwd(a.double(), x.double(), h.double(), dh.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,layers", [("whisper-tiny", None),
+                                         ("recurrentgemma-2b", 5)])
+def test_train_step_on_the_card_matches_cpu(card, name, layers):
+    """One AdamW step at ``reduced()`` (recurrentgemma at 5 layers: a
+    rematerialised super-block and a remainder) on the card and on the CPU
+    from the same weights and batch: the loss and the moments within 1e-4
+    relative; the card launches the forward and backward kernels."""
+    import dataclasses
+
+    import repro_torch  # noqa: F401  (turns TF32 off)
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rglru_scan import kernel as rk
+    from repro_torch.models import get_family, make_train_step
+    from repro_torch.train import adamw_init
+    from repro_torch.train.tree import paths
+    from repro_torch.weights import to_device
+
+    cfg = ARCHS[name].reduced()
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    params = get_family(cfg).init(torch.Generator().manual_seed(0), cfg,
+                                  device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 32), generator=gen),
+             "labels": torch.randint(0, cfg.vocab, (2, 32), generator=gen)}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                                      generator=gen)
+    gparams = to_device(params, card)
+    gbatch = to_device(batch, card)
+    step = make_train_step(cfg)
+    _, cstate, cm = step(params, adamw_init(params), batch)
+    counters = (fk.flash_attention, fk.flash_attention_bwd, rk.rglru_scan,
+                rk.rglru_scan_bwd)
+    before = [c.launches for c in counters]
+    _, gstate, gm = step(gparams, adamw_init(gparams), gbatch)
+    torch.cuda.synchronize()
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    if name == "whisper-tiny":      # the encoder's layers, not rematerialised
+        assert launched == [cfg.encoder_layers, cfg.encoder_layers, 0, 0]
+    else:                           # 2 + 2 recomputed + 2 remainder; 4
+        assert launched == [0, 0, 6, 4]
+    assert abs(float(gm["loss"]) - float(cm["loss"])) <= 1e-4 * float(cm["loss"])
+    for field in ("mu", "nu"):
+        want = dict(paths(getattr(cstate, field)))
+        for key, leaf in paths(getattr(gstate, field)):
+            assert _rel(leaf, want[key]) <= 1e-4, (field, key)

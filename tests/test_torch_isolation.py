@@ -100,6 +100,24 @@ LLM_MODULES = [
     "repro_torch.kernels.flash_attention.ops",
 ]
 
+# the training path: the data pipeline, the optimizers, checkpoints, the
+# loop and its launcher, the train step and both kernels' backward routes
+TRAIN_MODULES = [
+    "repro_torch.data",
+    "repro_torch.data.pipeline",
+    "repro_torch.train",
+    "repro_torch.train.tree",
+    "repro_torch.train.optimizer",
+    "repro_torch.train.checkpoint",
+    "repro_torch.train.loop",
+    "repro_torch.launch.train",
+    "repro_torch.models.steps",
+    "repro_torch.kernels.flash_attention.kernel",
+    "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.kernels.rglru_scan.kernel",
+    "repro_torch.kernels.rglru_scan.ops",
+]
+
 _PROBE = """
 import importlib, sys
 
@@ -125,9 +143,10 @@ def _src():
 
 @pytest.mark.parametrize("modules", [MODULES, LORA_MODULES, QUANT_MODULES,
                                      LAUNCH_MODULES, PROC_MODULES,
-                                     MESH_MODULES, LLM_MODULES],
+                                     MESH_MODULES, LLM_MODULES,
+                                     TRAIN_MODULES],
                          ids=["main-path", "lora", "quant-rglru", "launch",
-                              "proc", "mesh", "llm"])
+                              "proc", "mesh", "llm", "train"])
 def test_port_imports_without_jax_or_repro(modules):
     env = dict(os.environ, PYTHONPATH=_src())
     out = subprocess.run([sys.executable, "-c", _PROBE, *modules], env=env,
