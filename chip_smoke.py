@@ -303,7 +303,8 @@ Phases (any failed check raises, and the script exits non-zero):
    ``set_flash_attention(False)``.  The backward kernel alone at (24,
    1500, 1500, 64) against ``attention_bwd_ref`` (``FLASH_BWD_TOL``), the
    same bits twice, and timed as in phase 5 beside its plain version and
-   SDPA's backward.
+   SDPA's backward; the ``[time]`` line adds its share of the bound and
+   its time over SDPA's backward.
    9h. recurrentgemma-2b at full width over 5 layers (one rematerialised
    (rglru, rglru, attn) super-block and the 2-block remainder) at (1,
    4096), the JAX package's train_4k length: ``rglru_scan`` 6 forward (2,
@@ -2310,7 +2311,10 @@ def time_flash_bwd(torch, fa, fref, shape, reps=10) -> dict:
     row log-sum-exp read and dq, dk, dv written once; as for the f32
     forward, at the rate of three TF32 passes (the card's f32-accurate
     product rate), with the f32 FMA rate's figure beside it
-    (``bound_f32_fma_ms``, on the ``[time]`` line only)."""
+    (``bound_f32_fma_ms``, on the ``[time]`` line only).  Also on that
+    line: the kernel's share of its bound, its time over SDPA's backward,
+    and the bound of the 7 products the kernel does (S and dP once in the
+    dK/dV sweep and again in the dQ sweep) at three TF32 passes."""
     import torch.nn.functional as F
 
     bh, sq, sk, d = shape
@@ -2322,16 +2326,20 @@ def time_flash_bwd(torch, fa, fref, shape, reps=10) -> dict:
     bound_ms, bound_by = bound(nbytes, 3 * flops, "tf32")
     qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(qs, ks, vs)
+    ms = cuda_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
+                 reps)
+    library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, (qs, ks, vs), do, retain_graph=True), reps)
     return {
         "shape": "BH=%d,Sq=%d,Sk=%d,D=%d,float32" % shape,
-        "ms": cuda_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse,
-                                                            do), reps),
+        "ms": ms,
         "plain_ms": cuda_ms(torch, lambda: fref.attention_bwd_ref(
             q, k, v, o, lse, do), reps),
-        "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
-            out, (qs, ks, vs), do, retain_graph=True), reps),
+        "library_ms": library_ms,
         "library": "torch.autograd.grad of F.scaled_dot_product_attention",
         "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_share": bound_ms / ms, "over_library": ms / library_ms,
+        "bound_7_products_ms": bound(nbytes, 3 * 1.4 * flops, "tf32")[0],
         "bound_f32_fma_ms": bound(nbytes, flops, "float32")[0],
     }
 

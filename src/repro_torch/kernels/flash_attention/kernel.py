@@ -19,9 +19,10 @@ With ``return_lse=True`` (f32 at head dims 8-64, the training routes) the
 forward also returns each row's log-sum-exp, which the backward needs.
 
 :func:`flash_attention_bwd` is the backward: ``csrc/flash_attention_bwd.cu``
-(a row-sum pre-pass, a dK/dV sweep per key tile and a dQ sweep per query
-tile, f32 on the CUDA cores, the same bits every call; its header note
-gives the bound) for CUDA tensors, :func:`attention_bwd_ref` for CPU ones.
+(a row-sum pre-pass, then a dK/dV sweep per key tile and a dQ sweep per
+query tile, at head dim 64 in one grid on split-TF32 tensor-core tiles,
+the same bits every call; its header note gives the bound and the design)
+for CUDA tensors, :func:`attention_bwd_ref` for CPU ones.
 It replaces no Pallas kernel (the JAX package differentiates its plain
 attention); ``flash_attention_bwd.launches`` counts its calls.  The
 ``torch.autograd.Function`` that joins the two is in :mod:`.ops`.
@@ -209,11 +210,12 @@ def flash_attention_bwd(
     for name, t, shape in (("o", o, q.shape), ("do", do, q.shape),
                            ("lse", lse, (bh, sq))):
         if (t.device != q.device or t.dtype != torch.float32
-                or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
+                or tuple(t.shape) != tuple(shape) or not t.is_contiguous()
+                or t.data_ptr() % 16):
             raise ValueError(f"flash_attention_bwd: {name} must be a "
-                             f"contiguous float32 {tuple(shape)} tensor on "
-                             f"{q.device}, got {t.dtype} {tuple(t.shape)} "
-                             f"on {t.device}")
+                             f"contiguous, 16-byte aligned float32 "
+                             f"{tuple(shape)} tensor on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
     fn = _bwd_kernel()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)

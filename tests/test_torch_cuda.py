@@ -706,7 +706,9 @@ def test_proc_plane_on_the_card_matches_local(card, monkeypatch):
 
 # Flash-attention backward: dq, dk, dv against attention_bwd_ref on the same
 # inputs (and the kernel's own lse) within 1e-5 of max(1, max |ref|) (f32
-# FMAs summed in another order), the same bits on a second call.
+# sums in another order; at head dim 64 split-TF32 products, which keep
+# about 20 bits), the same bits on a second call.  The head-dim-64 shapes
+# cross the 64-row tiles' edges.
 FLASH_BWD_GRID = [
     ((2, 128, 128, 64), False, None),
     ((2, 256, 256, 32), True, None),
@@ -717,6 +719,16 @@ FLASH_BWD_GRID = [
     ((2, 300, 300, 64), True, 37),
     ((1, 200, 150, 64), True, 1),      # rows 150.. see no key
     ((24, 1500, 1500, 64), False, None),  # whisper-tiny's encoder
+    ((2, 130, 190, 64), False, None),  # neither a multiple of the tile
+    ((2, 37, 50, 64), False, None),    # both inside one tile
+    ((2, 300, 20, 64), True, None),    # Sk under a tile, Sq > Sk
+    ((2, 700, 129, 64), False, None),  # Sq > Sk
+    ((2, 129, 700, 64), False, None),  # Sq < Sk
+    ((1, 100, 300, 64), True, None),   # keys 100.. seen by no row
+    ((2, 260, 260, 64), False, 20),    # a window narrower than a tile
+    ((1, 333, 333, 64), True, 5),
+    ((1, 1500, 1500, 64), False, None),   # BH 1
+    ((160, 256, 256, 64), False, None),   # 1280 blocks, 5 per SM
 ]
 
 

@@ -249,6 +249,60 @@ def test_split_tf32_products_hold_the_f32_gate(shape, rounding):
     assert err1 > 2e-5, err1
 
 
+def _tf32_attention_bwd(q, k, v, o, lse, do, mask, passes):
+    """The backward kernel's head-dim-64 arithmetic in plain torch: every
+    product in TF32 (operands cut, f32 sums), one pass or three.  Its dK/dV
+    sweep forms S^T = K Q^T and dP^T = V dO^T, its dQ sweep S and dP again:
+    the same products, so one emulation stands for both."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    kt, vt = k.transpose(-1, -2), v.transpose(-1, -2)
+    s = _tf32_product(q, kt, passes, "cut")
+    p = torch.where(mask, torch.exp(s * scale - lse[..., None]), 0.0)
+    dp = _tf32_product(do, vt, passes, "cut")
+    ds = p * (dp - (do * o).sum(dim=-1, keepdim=True))
+    return (_tf32_product(ds, k, passes, "cut") * scale,
+            _tf32_product(ds.transpose(-1, -2), q, passes, "cut") * scale,
+            _tf32_product(p.transpose(-1, -2), do, passes, "cut"))
+
+
+@pytest.mark.parametrize("shape,causal,window", [
+    ((2, 1500, 1500, 64), False, None),     # whisper-tiny's encoder
+    ((2, 700, 500, 64), True, None),
+    ((2, 600, 600, 64), False, 100),
+], ids=["whisper", "causal", "window"])
+def test_split_tf32_backward_holds_the_f32_gate(shape, causal, window):
+    """The backward kernel's five products in 3xTF32 lie within its gate
+    (1e-5 of max(1, max |ref|), ``FLASH_BWD_TOL``) of the float64 backward
+    of the same f32 inputs for dq, dk and dv, and in one TF32 pass each
+    misses it: the gate needs the three passes."""
+    bh, sq, sk, d = shape
+    r = np.random.default_rng(9)
+    q, k, v, do = (torch.from_numpy(r.standard_normal((bh, n, d))
+                                    .astype(np.float32))
+                   for n in (sq, sk, sk, sq))
+    qpos, kpos = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    qd, kd, vd, dod = q.double(), k.double(), v.double(), do.double()
+    s = (qd @ kd.transpose(-1, -2) / np.sqrt(d)).masked_fill(~mask, -np.inf)
+    o = (torch.softmax(s, dim=-1) @ vd).float()
+    lse = torch.logsumexp(s, dim=-1).float()
+    p = torch.where(mask, torch.exp(s - lse.double()[..., None]), 0.0)
+    ds = p * (dod @ vd.transpose(-1, -2)
+              - (dod * o.double()).sum(dim=-1, keepdim=True))
+    want = (ds @ kd / np.sqrt(d), ds.transpose(-1, -2) @ qd / np.sqrt(d),
+            p.transpose(-1, -2) @ dod)
+    for passes, holds in ((3, True), (1, False)):
+        got = _tf32_attention_bwd(q, k, v, o, lse, do, mask, passes)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = float((g.double() - w).abs().max())
+            gate = 1e-5 * max(1.0, float(w.abs().max()))
+            assert (err <= gate) == holds, (passes, name, err, gate)
+
+
 @pytest.mark.parametrize("chunk", [16, 64, 100, 333])
 @pytest.mark.parametrize("shape,causal,window", [
     ((2, 333, 333, 64), False, None),
