@@ -275,6 +275,17 @@ Phases (any failed check raises, and the script exits non-zero):
    against an 8192-slot ring cache, each within ``LLM_REL`` of the
    forward; printed: the prefill's wall, one decode step at batch 1
    against a 32768-deep cache and peak memory.
+   8s. llama3-8b's 32 layers still on the card: the flash-decode over a
+   sequence-sharded KV cache (``decode_shards`` a ``Submesh`` of 4 slots
+   of the card, ``shard_decode_cache``), 32 steps at batch 1 against a
+   16384-deep cache, each step's logits against the unsharded route's
+   (same parameters, cache and tokens) within ``LLM_REL``, no kernel
+   launched: from an empty cache (the logits and the whole cache the same
+   bits), then across the first two slots' boundary from a cache of
+   seeded normal K/V (layer 0's K/V the same bits, the deeper layers'
+   written K/V within ``LLM_REL``: their inputs carry the merged
+   softmax's rounding; every other slot untouched); printed: one step on
+   each route (CUDA events, median of 20) and peak memory.
    8z. The other seven configs at full width and cut depth (2 layers;
    xlstm-1.3b 8, one 7:1 super-block; grok-1-314b 1; MoE at capacity
    factor 8.0): a prefill of (2, 1024) tokens (internvl2-2b with its 256
@@ -316,8 +327,20 @@ Phases (any failed check raises, and the script exits non-zero):
    float64 reverse recurrence (``RGLRU_BWD_F64_REL``), the same bits
    twice, and timed.
 
+10. The dry-run CLIs (``python -m repro_torch.launch.dryrun --arch
+   whisper-tiny --shape decode_32k``, ``--arch llama3-8b --shape train_4k
+   --multi-pod both``, ``python -m repro_torch.launch.dryrun_diffusion
+   --family sd3``): meta-device traces on fake-process-group meshes of 256
+   and 512 ranks, each in a process of its own with the card hidden from
+   it, started with the script and run on the host's cores beside the
+   card's phases (at a lower priority); read after phase 9: each must
+   exit 0 with its ``OK`` lines; printed: the lines and each process's
+   wall.
+
 The phases run in the order 1, 2, 3, 4, 5, 6, 4q, 5q, 6q, 4b, 4c, 5b, 6b,
-5c, 4n, 5n, 4nq, 6n, 7l, 5l, 7p, 7s, 5s, 8h, 8w, 8d, 8z, 9w, 9h.  Before the last two lines, one JSON ``kernels`` line
+5c, 4n, 5n, 4nq, 6n, 7l, 5l, 7p, 7s, 5s, 8h, 8w, 8d, 8s, 8z, 9w, 9h, 10
+(whose processes start before phase 1).  Before the last two lines, one
+JSON ``kernels`` line
 lists every kernel, ``quantize_rows`` (which replaces plain code, not a
 Pallas kernel) among them: its ``launches`` are the count from its own
 path's run (the single-adapter LoRA kernel has no serving path: 0;
@@ -464,6 +487,83 @@ RGLRU_F64_TOL = 5e-5
 
 def log(*a):
     print(*a, flush=True)
+
+
+# ------------------------------------------------------------ dry runs
+
+# phase 10: the dry-run CLIs (meta-device traces on a fake-process-group
+# mesh; no card needed) and the lines each must print
+DRYRUNS = [
+    (["repro_torch.launch.dryrun", "--arch", "whisper-tiny", "--shape",
+      "decode_32k"], ["OK   whisper-tiny x decode_32k x 16x16"]),
+    (["repro_torch.launch.dryrun", "--arch", "llama3-8b", "--shape",
+      "train_4k", "--multi-pod", "both"],
+     ["OK   llama3-8b x train_4k x 16x16",
+      "OK   llama3-8b x train_4k x 2x16x16"]),
+    (["repro_torch.launch.dryrun_diffusion", "--family", "sd3"],
+     ["OK   diffusion:sd3"]),
+]
+
+
+def start_dryruns() -> list:
+    """Start phase 10's CLIs, each in its own process: they need the host's
+    cores only (the card is hidden from them), so they run beside the
+    card's phases, at a lower priority."""
+    import atexit
+    import tempfile
+    import threading
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    started = []
+    for args, want in DRYRUNS:
+        # files, not pipes: a full pipe would stall the process until read
+        logs = (tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", *args], cwd=str(ROOT), env=env,
+            stdout=logs[0], stderr=logs[1], text=True,
+            preexec_fn=lambda: os.nice(10))
+        # each process's own wall: a thread notes when it ends
+        times = [time.perf_counter(), None]
+        threading.Thread(target=lambda p=proc, t=times: (
+            p.wait(), t.__setitem__(1, time.perf_counter())),
+            daemon=True).start()
+        started.append((args, want, proc, logs, times))
+
+    def stop():                  # a failed phase leaves none running
+        for _, _, proc, _, _ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    atexit.register(stop)
+    return started
+
+
+def finish_dryruns(started, card) -> list:
+    """Phase 10: each CLI must exit 0 with its ``OK`` lines; prints each
+    one's wall and its lines."""
+    out = []
+    for args, want, proc, logs, times in started:
+        proc.wait(timeout=1200)
+        time.sleep(0.1)                 # let the thread note the end
+        wall = (times[1] or time.perf_counter()) - times[0]
+        stdout, stderr = (f.seek(0) or f.read() for f in logs)
+        lines = [ln for ln in stdout.splitlines()
+                 if ln.startswith(("OK", "FAIL", "SKIP"))]
+        for ln in lines:
+            log(f"[dryrun] {ln}")
+        missing = [w for w in want if not any(ln.startswith(w)
+                                               for ln in lines)]
+        if proc.returncode != 0 or missing:
+            raise AssertionError(f"10: python -m {' '.join(args)} exited "
+                                 f"{proc.returncode}, missing {missing}: "
+                                 f"{stderr[-2000:]}")
+        log(f"[dryrun] python -m {' '.join(args)}: exit 0, wall {wall:.1f} s "
+            f"(started with the script, beside the card's phases, on the "
+            f"host's cores)  [{card}]")
+        out.append({"cmd": " ".join(args), "wall_s": wall, "lines": lines})
+    return out
 
 
 def card_line() -> str:
@@ -1866,6 +1966,7 @@ LLM_SIZES = {
     "whisper_prefill": (4, 448), "whisper_decode": 4,
     "llama_prefill": (1, 4096), "llama_decode": (1, 32),
     "llama_cache": 16384, "llama_timed_cache": 32768,
+    "llama_shard_slots": 4, "llama_shard_steps": 32,
     "other_prefill": (2, 1024), "other_decode": (2, 16),
 }
 # 8z: the other configs at full width, depth cut to 2 layers but these
@@ -1999,6 +2100,133 @@ def profile_prefill(torch, fn, card, label, kernels, device="cuda") -> dict:
 def free(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def sharded_decode_phase(torch, cfg, params, card, counters, device, sz
+                         ) -> dict:
+    """Phase 8s: llama3-8b's decode with its cache's sequence axis split
+    over ``llama_shard_slots`` slots of the one card (a ``Submesh`` of
+    distinct ``torch.device`` objects, ``decode_shards`` installed: the
+    flash-decode over a sequence-sharded cache) against the unsharded
+    route, step by step, with the same parameters, cache and tokens.
+
+    Two runs of ``llama_shard_steps`` steps: from an empty cache (every
+    slot a step reads lies in the first slot's part, the other parts add
+    exact zeros: on the card the logits and the whole cache must be the
+    same bits; a CPU rehearsal's reductions group the zeros otherwise),
+    and across the boundary of the first two parts from a cache filled
+    with seeded normal K/V (the merges meet real partials: the logits
+    within ``LLM_REL``, layer 0's K/V the same bits, the deeper layers'
+    written K/V within ``LLM_REL``, every other slot untouched)."""
+    from repro_torch.core.mesh import Submesh
+    from repro_torch.models import act_sharding, get_family, make_serve_step
+    from repro_torch.models.transformer import (gather_decode_cache,
+                                                shard_decode_cache)
+
+    k, steps, depth = (sz["llama_shard_slots"], sz["llama_shard_steps"],
+                       sz["llama_cache"])
+    index = 0 if device == "cuda" else None
+    mesh = Submesh([torch.device(device, index) for _ in range(k)], range(k))
+    fam = get_family(cfg)
+    step = make_serve_step(cfg)
+
+    def sharded_step(cache, tok):
+        with act_sharding.activation_sharding(None, decode_shards=mesh):
+            return step(params, cache, tok)
+
+    def run(start, seed):
+        plain = fam.init_decode_cache(cfg, 1, depth, dtype=torch.float32,
+                                      device=device)
+        if start:
+            gen = torch.Generator(device).manual_seed(seed)
+            for name in ("k", "v"):
+                plain[name].normal_(generator=gen)
+            plain["pos"] = start
+        sharded = shard_decode_cache(plain, mesh)
+        before = {n: plain[n].clone() for n in ("k", "v")}
+        tokens = llm_tokens(torch, cfg, (1, steps), seed, device)
+        worst, exact, launched = 0.0, True, {}
+        for t in range(steps):
+            want, plain = step(params, plain, tokens[:, t])
+            zero_counts(counters)
+            got, sharded = sharded_step(sharded, tokens[:, t])
+            torch.cuda.synchronize()
+            for name, n in read_counts(counters).items():
+                launched[name] = launched.get(name, 0) + n
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"8s step {t}: logits not finite")
+            worst = max(worst, rel_inf(got, want, cfg.vocab))
+            exact &= bool(torch.equal(got, want))
+        if any(launched.values()):
+            raise AssertionError(f"8s: kernels launched on the sharded "
+                                 f"decode {launched}, reckoned none")
+        if not worst <= LLM_REL:
+            raise AssertionError(f"8s from {start}: sharded vs unsharded "
+                                 f"logits rel err {worst} > {LLM_REL}")
+        joined = gather_decode_cache(sharded, mesh)
+        written = slice(start, start + steps)
+        cache_rel, layer0, untouched = 0.0, True, True
+        for name in ("k", "v"):
+            got, want = joined[name], plain[name]
+            layer0 &= bool(torch.equal(got[0], want[0]))
+            w = want[:, :, written].double()
+            cache_rel = max(cache_rel, float(
+                (got[:, :, written].double() - w).abs().max()
+                / w.abs().max()))
+            keep = torch.ones(depth, dtype=torch.bool, device=got.device)
+            keep[written] = False
+            untouched &= bool(torch.equal(got[:, :, keep],
+                                          before[name][:, :, keep]))
+        same = all(torch.equal(joined[n], plain[n]) for n in ("k", "v"))
+        del joined, before
+        out = {"start": start, "logits_rel": worst, "logits_exact": exact,
+               "cache_written_rel": cache_rel,
+               "cache_layer0_bit_identical": layer0,
+               "cache_untouched": untouched, "cache_bit_identical": same,
+               "launches": launched}
+        if not (layer0 and untouched and cache_rel <= LLM_REL):
+            raise AssertionError(f"8s from {start}: cache {out}")
+        if device == "cuda" and not start and not (same and exact):
+            raise AssertionError(f"8s from an empty cache: not the same "
+                                 f"bits {out}")
+        return out, plain, sharded
+
+    torch.cuda.reset_peak_memory_stats()
+    empty, _, _ = run(0, 4)
+    cross, plain, sharded = run(depth // k - steps // 2, 5)
+    tok1 = llm_tokens(torch, cfg, (1,), 3, device)
+    holder = {"plain": plain, "sharded": sharded}
+
+    def time_plain():
+        out, holder["plain"] = step(params, holder["plain"], tok1)
+        return out
+
+    def time_sharded():
+        out, holder["sharded"] = sharded_step(holder["sharded"], tok1)
+        return out
+
+    plain_ms = cuda_ms(torch, time_plain, 20)
+    sharded_ms = cuda_ms(torch, time_sharded, 20)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    result = {"slots": k, "steps": steps, "cache_depth": depth,
+              "from_empty": empty, "across_slots": cross,
+              "plain_step_ms": plain_ms, "sharded_step_ms": sharded_ms,
+              "peak_gib": peak}
+    for r in (empty, cross):
+        log(f"[llm-8s] {cfg.name}: {steps} decode steps from position "
+            f"{r['start']}, a {depth}-slot cache split over {k} slots of "
+            f"the card: logits worst rel err {r['logits_rel']:.3e} <= "
+            f"{LLM_REL} against the unsharded route (same bits "
+            f"{r['logits_exact']}); cache layer 0 bit-identical "
+            f"{r['cache_layer0_bit_identical']}, written slots rel err "
+            f"{r['cache_written_rel']:.3e}, other slots untouched "
+            f"{r['cache_untouched']}, whole cache bit-identical "
+            f"{r['cache_bit_identical']}; kernel launches {r['launches']}  "
+            f"[{card}]")
+    log(f"[llm-8s] one step at position {cross['start'] + steps}: "
+        f"unsharded {plain_ms:.3f} ms, sharded {sharded_ms:.3f} ms (median "
+        f"of 20); peak memory {peak:.2f} GiB  [{card}]")
+    return result
 
 
 def llm_phase(torch, card, counters, device="cuda", archs=None,
@@ -2217,7 +2445,13 @@ def llm_phase(torch, card, counters, device="cuda", archs=None,
         f"decode step at batch 1 against a {sz['llama_timed_cache']}-deep "
         f"cache {decode_ms:.3f} ms (median of 20); peak memory {peak:.2f} "
         f"GiB  [{card}]")
-    del params, cache, last, batch
+    del cache, last, batch
+    free(torch)
+
+    # ------------ 8s. llama3-8b's decode over a sequence-sharded cache
+    out["runs"]["8s"] = sharded_decode_phase(torch, cfg, params, card,
+                                             counters, device, sz)
+    del params
     free(torch)
 
     # ------------------------- 8z. every other config, full width, cut depth
@@ -2786,6 +3020,8 @@ def main() -> None:
     t_start = time.perf_counter()
     f32, bf16 = torch.float32, torch.bfloat16
     path_types = (f32, bf16, bf16)
+    # 10. the dry-run CLIs, on the host's cores beside the card's phases
+    dryruns = start_dryruns()
 
     # ---------------------------------------------------------- 1. card
     card = card_line()
@@ -3721,6 +3957,9 @@ def main() -> None:
                                                    rk.rglru_scan_bwd))
     train_launches = {tag: run["launches_total"]
                       for tag, run in trained["runs"].items()}
+
+    # ---------- 10. the dry-run CLIs, started with the script
+    finish_dryruns(dryruns, card)
 
     # the headline is the largest shape each path really launched
     served = max(path_shapes, key=lambda s: s[0] * s[1] * s[2] * s[3])

@@ -37,6 +37,7 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.kernels import meta
 from repro_torch.kernels.build import build
 from repro_torch.kernels.flash_attention.ref import (
     attention_bwd_ref,
@@ -149,7 +150,10 @@ def flash_attention(
 ) -> Any:
     """Attention of ``[BH, S, D]`` q, k, v; with ``return_lse`` the pair
     ``(out, lse)``, ``lse`` [BH, Sq] f32 each row's log-sum-exp of the
-    scaled, masked scores (+inf for a row that sees no key)."""
+    scaled, masked scores (+inf for a row that sees no key).  Meta tensors
+    take the dry run's meta route (:mod:`repro_torch.kernels.meta`)."""
+    if q.device.type == "meta":
+        return meta.flash_attention(q, k, v, return_lse=return_lse)
     if q.device.type == "cpu":
         out = attention_ref(q, k, v, causal=causal, window=window,
                             scale=scale)
@@ -200,6 +204,8 @@ def flash_attention_bwd(
 ) -> tuple:
     """``(dq, dk, dv)`` of :func:`flash_attention` (f32, head dims 8-64)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "meta":
+        return meta.flash_attention_bwd(q, k, v, o, lse, do)
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, scale, causal=causal,
                                  window=window)

@@ -15,7 +15,7 @@ forward, whose backward differentiates the plain attention.  On the card
 it launches its kernels or raises (bf16 and head dim 1024 have no backward
 kernel): it never differentiates the plain version there.  A call that
 needs no gradient, every serving call, takes the forward alone and writes
-no log-sum-exp.
+no log-sum-exp.  Meta tensors (the dry run) take the kernels' meta routes.
 """
 
 from __future__ import annotations

@@ -34,6 +34,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.kernels import meta
 from repro_torch.kernels.build import build
 from repro_torch.kernels.rglru_scan.ref import rglru_bwd_ref, rglru_ref
 
@@ -82,7 +83,10 @@ def _refuse(a: torch.Tensor, *others: torch.Tensor,
 
 def rglru_scan(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``h_t = a_t h_{t-1} + sqrt(max(1 - a_t^2, 0)) x_t`` over the time
-    axis of ``[B, T, D]`` inputs, ``h_{-1} = 0``."""
+    axis of ``[B, T, D]`` inputs, ``h_{-1} = 0``.  Meta tensors take the
+    dry run's meta route (:mod:`repro_torch.kernels.meta`)."""
+    if a.device.type == "meta":
+        return meta.rglru_scan(a, x)
     if a.device.type == "cpu":
         return rglru_ref(a, x)
     # one test on the usual path; the host time of a call shows beside a
@@ -116,6 +120,8 @@ def rglru_scan_bwd(a: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
                    dh: torch.Tensor) -> tuple:
     """``(da, dx)`` of :func:`rglru_scan` at ``(a, x)``, given its output
     ``h`` and the upstream gradient ``dh`` (all ``[B, T, D]``)."""
+    if a.device.type == "meta":
+        return meta.rglru_scan_bwd(a, x, h, dh)
     if a.device.type == "cpu":
         return rglru_bwd_ref(a, x, h, dh)
     ins = (a, x, h, dh)

@@ -13,13 +13,17 @@ one), the call goes through :class:`RGLRUScan`, a
 ``torch.autograd.Function`` whose forward is the same scan and whose
 backward is :func:`~.kernel.rglru_scan_bwd`: the backward kernel on the
 card, which it launches or raises (it never differentiates the plain
-version there), the plain backward on the CPU.
+version there), the plain backward on the CPU.  Meta tensors (the dry
+run) take the kernels' meta routes, and ``DTensor`` inputs run on their
+local shards (:func:`repro_torch.kernels.meta.on_local_shards`), batch and
+channels split and time whole.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import meta
 from repro_torch.kernels.rglru_scan.kernel import rglru_scan, rglru_scan_bwd
 
 
@@ -41,6 +45,8 @@ class RGLRUScan(torch.autograd.Function):
 def rglru(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``[B, T, D]`` decay gates ``a`` in (0, 1) and inputs ``x`` ->
     ``[B, T, D]`` recurrent states."""
+    if meta.is_dtensor(a) or meta.is_dtensor(x):   # a dry-run trace
+        return meta.on_local_shards(rglru, (a, x), (0, 2))
     a, x = a.contiguous(), x.contiguous()
     if torch.is_grad_enabled() and (a.requires_grad or x.requires_grad):
         return RGLRUScan.apply(a, x)

@@ -3,13 +3,17 @@
 The model stacks hand every residual-stream boundary tensor ``[B, S, d]``
 to :func:`constrain`, and the MoE dispatch buffers to
 :func:`constrain_moe`.  Both are identities unless a caller installs a
-hook with :func:`activation_sharding`; the JAX package's dry-run tools
-install ``with_sharding_constraint`` there, and the port's counterparts of
-those tools will install theirs.  ``moe_groups`` splits MoE routing into
+hook with :func:`activation_sharding`; the dry run
+(:mod:`repro_torch.launch.dryrun`) installs ``DTensor.redistribute`` to
+its activation layouts there, as the JAX package's installs
+``with_sharding_constraint``.  ``moe_groups`` splits MoE routing into
 group-local dispatches (GShard's grouping); ``decode_shards`` names the
-sequence-sharded KV cache of the flash-decode route, which the port does
-not run yet (:func:`repro_torch.models.transformer.decode_step` refuses
-it).
+sequence-sharded KV cache of the flash-decode route
+(:func:`repro_torch.models.transformer._flash_decode_shardmap`): a
+:class:`~repro_torch.core.mesh.Submesh` whose slots hold the cache's
+parts, or the dry run's ``(DeviceMesh, axis, dp)``; ``remat_context``
+gives a rematerialised layer's recomputation the context its forward ran
+in (the dry run's layout mode).
 
 Kept as module-level hooks so model code stays mesh-agnostic.
 """
@@ -23,6 +27,9 @@ _HOOK: Optional[Callable[[Any], Any]] = None
 _MOE_HOOK: Optional[Callable[[Any, str], Any]] = None
 _MOE_GROUPS: int = 1
 _DECODE_SHARDS: Optional[Any] = None
+# a context-manager factory for a rematerialised layer's recomputation,
+# which runs in the backward, outside the modes its forward ran under
+_REMAT_CONTEXT: Optional[Callable[[], Any]] = None
 
 
 def moe_groups() -> int:
@@ -31,6 +38,10 @@ def moe_groups() -> int:
 
 def decode_shards() -> Optional[Any]:
     return _DECODE_SHARDS
+
+
+def remat_context() -> Optional[Callable[[], Any]]:
+    return _REMAT_CONTEXT
 
 
 def set_hook(fn: Optional[Callable[[Any], Any]]) -> None:
@@ -55,12 +66,14 @@ def constrain_moe(x: Any, role: str) -> Any:
 def activation_sharding(fn: Optional[Callable[[Any], Any]],
                         moe_fn: Optional[Callable[[Any, str], Any]] = None,
                         moe_groups: int = 1,
-                        decode_shards: Optional[Any] = None):
-    global _HOOK, _MOE_HOOK, _MOE_GROUPS, _DECODE_SHARDS
-    prev = (_HOOK, _MOE_HOOK, _MOE_GROUPS, _DECODE_SHARDS)
-    _HOOK, _MOE_HOOK, _MOE_GROUPS, _DECODE_SHARDS = (
-        fn, moe_fn, moe_groups, decode_shards)
+                        decode_shards: Optional[Any] = None,
+                        remat_context: Optional[Callable[[], Any]] = None):
+    global _HOOK, _MOE_HOOK, _MOE_GROUPS, _DECODE_SHARDS, _REMAT_CONTEXT
+    prev = (_HOOK, _MOE_HOOK, _MOE_GROUPS, _DECODE_SHARDS, _REMAT_CONTEXT)
+    _HOOK, _MOE_HOOK, _MOE_GROUPS, _DECODE_SHARDS, _REMAT_CONTEXT = (
+        fn, moe_fn, moe_groups, decode_shards, remat_context)
     try:
         yield
     finally:
-        _HOOK, _MOE_HOOK, _MOE_GROUPS, _DECODE_SHARDS = prev
+        (_HOOK, _MOE_HOOK, _MOE_GROUPS, _DECODE_SHARDS,
+         _REMAT_CONTEXT) = prev

@@ -82,8 +82,8 @@ def make_train_step(
         if accum_steps == 1:
             loss, grads = grad_fn(params, batch)
         else:
-            acc = [torch.zeros(p.shape, dtype=accum_dtype or p.dtype,
-                               device=p.device) for p in leaves(params)]
+            acc = [torch.zeros_like(p, dtype=accum_dtype or p.dtype)
+                   for p in leaves(params)]
             loss = 0.0
             for i in range(accum_steps):
                 mb = {k: v.reshape(accum_steps, v.shape[0] // accum_steps,

@@ -17,13 +17,16 @@ encoder-decoder), as the JAX package's ``repro.models.transformer`` does.
   around its scan body) when grad is enabled; the encoder is not
   rematerialised, as in the JAX package.
 * Decode supports a full KV cache and a ring-buffer sliding-window cache
-  (the ``swa_decode_variant``).  A decode step writes the cache tensors in
-  place (the JAX package's launcher donates them) and returns the cache
-  dict with ``pos`` advanced.
+  (the ``swa_decode_variant``), and, with ``act_sharding``'s
+  ``decode_shards`` installed, the flash-decode over a sequence-sharded
+  full cache (:func:`_flash_decode_shardmap`).  A decode step writes the
+  cache tensors in place (the JAX package's launcher donates them) and
+  returns the cache dict with ``pos`` advanced.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -112,7 +115,10 @@ def remat_apply(fn, remat: bool, *args):
     set and grad is enabled; otherwise a plain call, so a serving forward
     launches and computes exactly what it would without it."""
     if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        ctx = act_sharding.remat_context()
+        kw = {"context_fn": lambda: (contextlib.nullcontext(), ctx())
+              } if ctx is not None else {}
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
     return fn(*args)
 
 
@@ -379,6 +385,141 @@ def init_decode_cache(cfg: ArchConfig, batch: int, seq_len: int,
     return cache
 
 
+def _decode_scores(q, k_new, v_new, ck, cv, pos: int, start: int,
+                   window: Optional[int]):
+    """One shard's first half of the flash decode: writes this step's K/V
+    into its cache slice ``ck``/``cv`` in place, and only when ``pos``
+    falls inside it (slots ``start`` to ``start + sl - 1``), then its
+    scaled scores ``[b, hkv, g, s, sl]`` under the ``slots <= pos`` mask
+    (and the window's), and the mask."""
+    b, s, hq, hd = q.shape
+    sl, hkv = ck.shape[1], ck.shape[2]
+    if start <= pos < start + sl:
+        update_slice_(ck, k_new.to(ck.dtype), pos - start)
+        update_slice_(cv, v_new.to(cv.dtype), pos - start)
+    qf = (q.float() * (1.0 / math.sqrt(hd))).reshape(b, s, hkv, hq // hkv, hd)
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qf, ck.float())
+    slots = start + torch.arange(sl, device=q.device)
+    mask = slots <= pos
+    if window is not None:
+        mask = mask & (slots > pos - window)
+    return torch.where(mask, sc, torch.finfo(torch.float32).min), mask
+
+
+def _decode_partials(sc, mask, m_glob, cv):
+    """One shard's second half: ``exp(sc - m_glob)`` under the mask, its
+    sum ``l`` and its product with the shard's values ``acc``."""
+    p_ = torch.where(mask, torch.exp(sc - m_glob[..., None]), 0.0)
+    return p_.sum(dim=-1), torch.einsum("bhgqk,bkhd->bqhgd", p_, cv.float())
+
+
+def _decode_finish(l, acc, q):
+    """The merged sums to the output ``[b, s, hq, hd]``: a zero sum (a row
+    that sees no slot) is set to 1 before the division."""
+    b, s, hq, hd = q.shape
+    l = torch.where(l == 0.0, 1.0, l)
+    out = acc / l.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, s, hq, hd).to(q.dtype)
+
+
+def _flash_decode_shardmap(shards, q, k, v, ck, cv, pos: int,
+                           window: Optional[int]) -> torch.Tensor:
+    """Flash-decode over a sequence-sharded KV cache (the JAX package's
+    ``_flash_decode_shardmap``).
+
+    Each shard of the cache's sequence axis updates its slice (iff ``pos``
+    falls inside it) and computes its scores; the global max comes first,
+    then each shard's ``exp(sc - max)`` sums and products, which are
+    summed across the shards: the order of the reference's pmax/psum, so
+    the rounding follows it.  One local step serves two meshes:
+
+    * a :class:`~repro_torch.core.mesh.Submesh` of k slots (serving): the
+      cache's K/V are lists of per-slot parts (:func:`shard_decode_cache`),
+      each written in place on its slot; the merges move the partials to
+      the home slot with device copies;
+    * ``(DeviceMesh, axis, dp)`` (the dry run): the cache is a ``DTensor``
+      sequence-sharded over ``axis``; the step runs in ``local_map`` (the
+      counterpart of ``shard_map``) and the merges are the functional
+      ``all_reduce``, MAX then SUM.
+    """
+    if hasattr(shards, "devices"):
+        return _flash_decode_slots(shards, q, k, v, ck, cv, pos, window)
+    return _flash_decode_mesh(shards, q, k, v, ck, cv, pos, window)
+
+
+def _flash_decode_slots(mesh, q, k, v, cks, cvs, pos, window):
+    home = q.device
+    parts, start = [], 0
+    for dev, ck, cv in zip(mesh.devices, cks, cvs):
+        sc, mask = _decode_scores(q.to(dev), k.to(dev), v.to(dev), ck, cv,
+                                  pos, start, window)
+        parts.append((sc, mask, cv))
+        start += ck.shape[1]
+    m_glob = parts[0][0].amax(dim=-1).to(home)
+    for sc, _, _ in parts[1:]:
+        m_glob = torch.maximum(m_glob, sc.amax(dim=-1).to(home))
+    l = acc = None
+    for sc, mask, cv in parts:
+        l_i, acc_i = _decode_partials(sc, mask, m_glob.to(sc.device), cv)
+        l = l_i.to(home) if l is None else l + l_i.to(home)
+        acc = acc_i.to(home) if acc is None else acc + acc_i.to(home)
+    return _decode_finish(l, acc, q)
+
+
+def _flash_decode_mesh(shards, q, k, v, ck, cv, pos, window):
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, axis, dp = shards
+    names = mesh.mesh_dim_names
+    dp = dp if isinstance(dp, tuple) else (dp,)
+    rows = tuple(Shard(0) if a in dp else Replicate() for a in names)
+    cache = tuple(Shard(0) if a in dp else Shard(1) if a == axis
+                  else Replicate() for a in names)
+    group = (mesh, names.index(axis))
+
+    def local(q, k_new, v_new, ck, cv):
+        start = mesh.get_local_rank(axis) * ck.shape[1]
+        sc, mask = _decode_scores(q, k_new, v_new, ck, cv, pos, start,
+                                  window)
+        m_glob = funcol.all_reduce(sc.amax(dim=-1), "max", group)
+        l, acc = _decode_partials(sc, mask, m_glob, cv)
+        l = funcol.all_reduce(l, "sum", group)
+        acc = funcol.all_reduce(acc, "sum", group)
+        return _decode_finish(l, acc, q)
+
+    # a list of placements per tensor: a tuple reads as one per output
+    rows, cache = list(rows), list(cache)
+    return local_map(local, out_placements=rows,
+                     in_placements=(rows, rows, rows, cache, cache),
+                     device_mesh=mesh, redistribute_inputs=True)(
+                         q, k, v, ck, cv)
+
+
+def shard_decode_cache(cache: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """``cache`` with its K/V sequence axis split over the slots of a
+    :class:`~repro_torch.core.mesh.Submesh`: part i a contiguous copy on
+    slot i, for :func:`decode_step` under ``decode_shards=mesh``."""
+    out = dict(cache)
+    for name in ("k", "v"):
+        t = cache[name]
+        if t.shape[2] % mesh.size:
+            raise ValueError(f"shard_decode_cache: {t.shape[2]} slots do "
+                             f"not split into {mesh.size} parts")
+        out[name] = [p.to(d, copy=True, memory_format=torch.contiguous_format)
+                     for p, d in zip(torch.chunk(t, mesh.size, dim=2),
+                                     mesh.devices)]
+    return out
+
+
+def gather_decode_cache(cache: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """The inverse of :func:`shard_decode_cache`: the parts joined on the
+    home slot."""
+    return {**cache, "k": mesh.gather(cache["k"], dim=2),
+            "v": mesh.gather(cache["v"], dim=2)}
+
+
 def _decode_attn_full(p, x, cfg: ArchConfig, rope, pos: int, ck, cv,
                       window: Optional[int]) -> torch.Tensor:
     """Decode attention with absolute-roped keys over the full cache; writes
@@ -389,10 +530,10 @@ def _decode_attn_full(p, x, cfg: ArchConfig, rope, pos: int, ck, cv,
     qpos = torch.full((s,), pos, dtype=torch.int64, device=x.device)
     q = apply_rope(q, cos, sin, qpos)
     k = apply_rope(k, cos, sin, qpos)
-    if act_sharding.decode_shards() is not None:
-        raise NotImplementedError(
-            "flash-decode over a sequence-sharded KV cache (the JAX "
-            "package's _flash_decode_shardmap) is not ported")
+    shards = act_sharding.decode_shards()
+    if shards is not None:
+        out = _flash_decode_shardmap(shards, q, k, v, ck, cv, pos, window)
+        return x + out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
     update_slice_(ck, k.to(ck.dtype), pos)
     update_slice_(cv, v.to(cv.dtype), pos)
     size = ck.shape[1]
@@ -443,14 +584,20 @@ def decode_step(
     ring: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     pos = int(cache["pos"])
-    size = cache["k"].shape[2]
+    # a list of per-slot parts under a Submesh's decode_shards
+    parts = isinstance(cache["k"], (list, tuple))
+    size = (sum(c.shape[2] for c in cache["k"]) if parts
+            else cache["k"].shape[2])
     x = params["embed"][token][:, None, :].to(params["lm_head"].dtype)
     rope = rope_frequencies(cfg.head_dim, size, cfg.rope_theta,
                             device=x.device)
     enc_out = cache.get("enc_out")
     for i in range(cfg.n_layers):
         p = layer(params["blocks"], i)
-        ck, cv = cache["k"][i], cache["v"][i]
+        if parts:
+            ck, cv = [c[i] for c in cache["k"]], [c[i] for c in cache["v"]]
+        else:
+            ck, cv = cache["k"][i], cache["v"][i]
         if ring:
             x = _decode_attn_ring(p, x, cfg, rope, pos, ck, cv)
         else:

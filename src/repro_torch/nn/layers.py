@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import meta
 from repro_torch.kernels.lora_matmul.ops import lora_apply_grouped
 from repro_torch.kernels.quant_matmul.ops import (
     dequantize_weight,
@@ -364,12 +365,26 @@ def gqa_attention(
       online-softmax path.
     * Everything else, the LLM families' causal and windowed attention
       among it, takes the plain dense path.
+
+    ``DTensor`` inputs (the dry run's trace) have their kv heads repeated
+    to the query heads, then run on their batch and head shards.
     """
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     if hq % hkv:
         raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
     group = hq // hkv
+    if meta.is_dtensor(q):
+        if group > 1:
+            k = k.repeat_interleave(group, dim=2)
+            v = v.repeat_interleave(group, dim=2)
+        # every caller's mask is the same for each batch row: a shard
+        # takes its first rows
+        return meta.on_local_shards(
+            lambda q, k, v: gqa_attention(
+                q, k, v, causal=causal, window=window, q_offset=q_offset,
+                mask=None if mask is None else mask[:q.shape[0]],
+                softmax_scale=softmax_scale), (q, k, v), (0, 2))
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     if (_flash_enabled and not causal and window is None and mask is None
             and q_offset == 0 and softmax_scale is None and sq == sk

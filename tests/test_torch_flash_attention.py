@@ -156,13 +156,24 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
 
 def test_non_cpu_tensor_launches_or_raises_never_falls_back(monkeypatch):
     """A tensor that is not on the CPU never reaches the plain version:
-    the wrapper checks it, builds and launches the kernel, or raises."""
+    the wrapper checks it, builds and launches the kernel, or raises.  A
+    meta tensor (the dry run's trace) takes the meta route, which computes
+    nothing and counts no launch."""
     plain_calls = []
     monkeypatch.setattr(fa_kernel, "attention_ref",
                         lambda *a, **k: plain_calls.append(1))
     x = torch.empty(2, 16, 16, device="meta")
+    before = flash_attention.launches
+    out = flash_attention(x, x, x)
+    assert out.device.type == "meta" and out.shape == x.shape
+    assert plain_calls == [] and flash_attention.launches == before
+    # a tensor on another device: the checks refuse it
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("xpu")))
     with pytest.raises(ValueError, match="CUDA device"):
         flash_attention(x, x, x)
+    monkeypatch.setattr(torch.Tensor, "device",
+                        property(lambda self: torch.device("cuda", 0)))
     # with the tensor checks passed (as for a real CUDA tensor), a missing
     # kernel build raises instead of running the plain version
     monkeypatch.setattr(fa_kernel, "_check", lambda *a: None)

@@ -118,6 +118,18 @@ TRAIN_MODULES = [
     "repro_torch.kernels.rglru_scan.ops",
 ]
 
+# the dry-run tools: the production meshes, the sharding rules, the cost
+# counter, the dry runs of the LLM steps and of one MMDiT step, and the
+# kernels' meta routes they trace
+DRYRUN_MODULES = [
+    "repro_torch.launch.mesh",
+    "repro_torch.launch.sharding",
+    "repro_torch.launch.op_cost",
+    "repro_torch.launch.dryrun",
+    "repro_torch.launch.dryrun_diffusion",
+    "repro_torch.kernels.meta",
+]
+
 _PROBE = """
 import importlib, sys
 
@@ -144,15 +156,33 @@ def _src():
 @pytest.mark.parametrize("modules", [MODULES, LORA_MODULES, QUANT_MODULES,
                                      LAUNCH_MODULES, PROC_MODULES,
                                      MESH_MODULES, LLM_MODULES,
-                                     TRAIN_MODULES],
+                                     TRAIN_MODULES, DRYRUN_MODULES],
                          ids=["main-path", "lora", "quant-rglru", "launch",
-                              "proc", "mesh", "llm", "train"])
+                              "proc", "mesh", "llm", "train", "dryrun"])
 def test_port_imports_without_jax_or_repro(modules):
     env = dict(os.environ, PYTHONPATH=_src())
     out = subprocess.run([sys.executable, "-c", _PROBE, *modules], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_dry_run_traces_without_jax_or_repro():
+    """A dry-run pair runs to its end with the JAX package unimportable."""
+    code = _PROBE.replace('print("ok")', (
+        "from repro_torch.launch.dryrun import run_pair\n"
+        "r = run_pair('whisper-tiny', 'decode_32k', False)\n"
+        "assert r['flops'] > 0 and r['collectives']['total'] > 0\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')"))
+    env = dict(os.environ, PYTHONPATH=_src())
+    out = subprocess.run([sys.executable, "-c", code,
+                          "repro_torch.launch.dryrun"], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_probe_blocks_the_jax_package():
