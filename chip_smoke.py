@@ -329,8 +329,10 @@ Phases (any failed check raises, and the script exits non-zero):
 
 10. The dry-run CLIs (``python -m repro_torch.launch.dryrun --arch
    whisper-tiny --shape decode_32k``, ``--arch llama3-8b --shape train_4k
-   --multi-pod both``, ``python -m repro_torch.launch.dryrun_diffusion
-   --family sd3``): meta-device traces on fake-process-group meshes of 256
+   --multi-pod both``, ``--arch granite-moe-1b-a400m --shape train_4k``,
+   ``--arch xlstm-1.3b --shape train_4k``, ``python -m
+   repro_torch.launch.dryrun_diffusion --family sd3``): meta-device
+   traces on fake-process-group meshes of 256
    and 512 ranks, each in a process of its own with the card hidden from
    it, started with the script and run on the host's cores beside the
    card's phases (at a lower priority); read after phase 9: each must
@@ -502,6 +504,12 @@ DRYRUNS = [
       "OK   llama3-8b x train_4k x 2x16x16"]),
     (["repro_torch.launch.dryrun_diffusion", "--family", "sd3"],
      ["OK   diffusion:sd3"]),
+    # the MoE and xLSTM train steps (routing and log-sigmoid on local
+    # shards), the longest traces of the set
+    (["repro_torch.launch.dryrun", "--arch", "granite-moe-1b-a400m",
+      "--shape", "train_4k"], ["OK   granite-moe-1b-a400m x train_4k x 16x16"]),
+    (["repro_torch.launch.dryrun", "--arch", "xlstm-1.3b", "--shape",
+      "train_4k"], ["OK   xlstm-1.3b x train_4k x 16x16"]),
 ]
 
 

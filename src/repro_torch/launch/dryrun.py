@@ -33,6 +33,8 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.configs import ARCHS, SKIPS, pairs
+from repro_torch.kernels.meta import (all_reduced, is_dtensor,
+                                      on_local_shards)
 from repro_torch.launch import op_cost
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import axis_names, axis_sizes, make_production_mesh
@@ -151,15 +153,17 @@ def distribute_tree(tree: Any, specs: Any, mesh) -> Any:
         if isinstance(t, torch.Tensor) else t, tree, specs)
 
 
-def local_bytes(tree: Any) -> int:
+def local_bytes(tree: Any, read: Optional[set] = None) -> int:
     """Bytes of this rank's shards of the tensors of ``tree`` (an int leaf,
     the decode cache's position, counts as the JAX package's int32
-    scalar)."""
+    scalar); with ``read`` (an :class:`~repro_torch.launch.op_cost.OpCost`'s
+    ``reads``), only those of the tensors whose values a step read."""
     total = 0
     for leaf in shd.leaves(tree):
         if isinstance(leaf, torch.Tensor):
             local = getattr(leaf, "_local_tensor", leaf)
-            total += local.numel() * local.element_size()
+            if read is None or op_cost.storage_key(local) in read:
+                total += local.numel() * local.element_size()
         elif isinstance(leaf, int):
             total += 4
     return total
@@ -215,15 +219,47 @@ def _tensor_parallel_product(func, x, w, **kwargs):
                          or px == Shard(last) else px)
             w_place.append(pw)
     if tuple(place) != tuple(x.placements):
-        x = x.redistribute(x.device_mesh, place)
-    if tuple(w_place) != tuple(w.placements):
-        w = w.redistribute(w.device_mesh, w_place)
-    out = func(x, w, **kwargs)
-    if any(isinstance(p, Partial) for p in out.placements):
-        out = out.redistribute(out.device_mesh, [
-            Replicate() if isinstance(p, Partial) else p
-            for p in out.placements])
-    return out
+        out = _Regathered.apply(x, w, place, w_place)
+    else:
+        out = func(x, _placed(w, w_place), **kwargs)
+    return all_reduced(out)
+
+
+def _placed(t, place):
+    """``t`` redistributed to ``place`` (a ``Partial`` there read as
+    ``Replicate``: a gradient's layout)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    place = tuple(Replicate() if isinstance(p, Partial) else p for p in place)
+    return t if tuple(t.placements) == place else t.redistribute(
+        t.device_mesh, place)
+
+
+class _Regathered(torch.autograd.Function):
+    """``x @ w`` on ``x`` and ``w`` redistributed to ``place`` and
+    ``w_place`` (gathered), saving them as they came: the backward gathers
+    them again for the two products of the gradient, as XLA's partitioned
+    backward does (its saved residuals are the operands as laid out at the
+    layer's boundary, not the gathered copies), with the gradient split
+    as the product's result was."""
+
+    @staticmethod
+    def forward(ctx, x, w, place, w_place):
+        ctx.save_for_backward(x, w)
+        out = _placed(x, place) @ _placed(w, w_place)
+        ctx.places = place, w_place, out.placements
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        place, w_place, out_place = ctx.places
+        xg, wg = _placed(x, place), _placed(w, w_place)
+        grad = _placed(grad, out_place)  # split as the product's result
+        k, n = wg.shape
+        dx = grad @ wg.t()
+        dw = xg.reshape(-1, k).t() @ grad.reshape(-1, n)
+        return _placed(dx, x.placements), _placed(dw, w.placements), None, None
 
 
 def _split_on(x: Any, dim: int):
@@ -264,10 +300,7 @@ def _gather_split(x, dim: int, index):
 
     def local(xl, il):
         n = xl.shape[dim]
-        start = 0
-        for i in split:
-            start = start * mesh.size(i) + mesh.get_local_rank(i)
-        il = il - start * n
+        il = il - _shard_start(mesh, split) * n
         inside = (il >= 0) & (il < n)
         out = torch.gather(xl, dim, il.clamp(0, n - 1))
         return torch.where(inside, out, 0.0)
@@ -296,6 +329,140 @@ def _split_reduction(func, args, kwargs):
     return _gather_split(args[0], dim, index)
 
 
+def _einsum_split(equation: str, a, b):
+    """``einsum(equation, a, b)`` laid out as XLA's partitioner lays it out
+    (``DTensor`` would decompose it into a batched product over a merged
+    dim and may gather a split batch dim for it).  On each mesh dim:
+
+    * a dim of ``a`` split there that the result keeps (a batch or free
+      dim) stays split, ``b`` split alike on it if it has it, else whole;
+    * else such a dim of ``b`` (a weight's output dim: the
+      column-parallel product);
+    * else a contracted dim split in either is split in both, and the
+      partial sums are all-reduced (the row-parallel product);
+    * else both are whole.
+
+    An input whole on a mesh dim whose result is split along a dim it
+    lacks gets its gradient summed there (a weight's data-parallel
+    gradient)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    ins, res = equation.replace(" ", "").split("->")
+    sa, sb = ins.split(",")
+    mesh = (a if is_dtensor(a) else b).device_mesh
+    ops = [x if is_dtensor(x) else _as_replicated(x, mesh) for x in (a, b)]
+    subs = (sa, sb)
+    size = {c: n for x, s in zip(ops, subs) for c, n in zip(s, x.shape)}
+    ways: Dict[str, int] = {}
+    place = ([], [])
+    out = []
+    for i in range(mesh.ndim):
+        m = mesh.size(i)
+        cur = [p.dim if isinstance(p, Shard) else None
+               for p in (ops[0].placements[i], ops[1].placements[i])]
+        lab = [s[c] if c is not None else None for s, c in zip(subs, cur)]
+        pick = next((c for c in lab if c is not None and c in res), None)
+        if pick is None:
+            pick = next((c for c in lab if c is not None), None)
+        if pick is not None and size[pick] % (ways.get(pick, 1) * m):
+            pick = None
+        if pick is None:
+            for k in (0, 1):
+                place[k].append(Replicate())
+            out.append(Replicate())
+            continue
+        for k, s in enumerate(subs):
+            place[k].append(Shard(s.index(pick)) if pick in s else Replicate())
+        ways[pick] = ways.get(pick, 1) * m
+        out.append(Shard(res.index(pick)) if pick in res else Partial())
+    grads = tuple(
+        [Partial() if isinstance(p, Replicate) and isinstance(o, Shard)
+         and res[o.dim] not in s else p
+         for p, o in zip(place[k], out)] for k, s in enumerate(subs))
+    y = local_map(lambda x, z: torch.einsum(equation, x, z),
+                  out_placements=out, in_placements=place,
+                  in_grad_placements=grads, device_mesh=mesh,
+                  redistribute_inputs=True)(*ops)
+    return all_reduced(y)
+
+
+def _as_replicated(x: torch.Tensor, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _is_einsum(func, args, kwargs) -> bool:
+    """Whether the call is ``torch.einsum(equation, a, b)`` with a
+    ``DTensor`` among the operands (and no ellipsis)."""
+    return (getattr(func, "__name__", "") == "einsum" and not kwargs
+            and len(args) == 3 and isinstance(args[0], str)
+            and "..." not in args[0] and "->" in args[0]
+            and all(isinstance(x, torch.Tensor) for x in args[1:])
+            and any(is_dtensor(x) for x in args[1:]))
+
+
+def _lookup_call(func, args):
+    """``(table, index)`` of ``table[index]`` for a ``DTensor`` table split
+    along its rows and an integer index (the decode step's embedding
+    lookup); ``None`` for any other call."""
+    if getattr(func, "__name__", "") != "__getitem__" or len(args) != 2:
+        return None
+    table, index = args
+    if not (is_dtensor(table) and table.ndim == 2
+            and isinstance(index, torch.Tensor)
+            and not index.dtype.is_floating_point
+            and index.dtype != torch.bool and _split_on(table, 0)):
+        return None
+    return table, index
+
+
+def _lookup_split(table, index):
+    """``table[index]`` for a table split along its rows as XLA partitions
+    it: each shard looks up the rows it holds (zeros for the others), and
+    the partial rows are all-reduced.  ``DTensor``'s own rule moves the
+    table instead (an all-to-all of all its shards), and the activations
+    come out split along the model dim, to be gathered again by every
+    product after."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    split = _split_on(table, 0)
+    if not is_dtensor(index):
+        index = _as_replicated(index, mesh)
+    t_place = [Shard(0) if i in split else Replicate()
+               for i in range(mesh.ndim)]
+    i_place = [Replicate() if i in split else p
+               for i, p in enumerate(index.placements)]
+    out_place = [Partial() if i in split else p for i, p in enumerate(i_place)]
+    t_grad = [p if i in split or not isinstance(q, Shard) else Partial()
+              for i, (p, q) in enumerate(zip(t_place, i_place))]
+
+    def local(tl, il):
+        n = tl.shape[0]
+        il = il - _shard_start(mesh, split) * n
+        inside = (il >= 0) & (il < n)
+        return torch.where(inside[..., None], tl[il.clamp(0, n - 1)], 0.0)
+
+    out = local_map(local, out_placements=out_place,
+                    in_placements=(t_place, i_place),
+                    in_grad_placements=(t_grad, i_place), device_mesh=mesh,
+                    redistribute_inputs=True)(table, index)
+    return all_reduced(out)
+
+
+def _shard_start(mesh, split) -> int:
+    """This rank's shard index along a dim split over the mesh dims
+    ``split`` (the first the outermost)."""
+    start = 0
+    for i in split:
+        start = start * mesh.size(i) + mesh.get_local_rank(i)
+    return start
+
+
 # what DTensor raises where it has no rule for an operation on its inputs'
 # layouts (an in-place write into a plain tensor raises AssertionError)
 _REFUSALS = (RuntimeError, NotImplementedError, ValueError, AssertionError)
@@ -303,20 +470,19 @@ _NO_RETRY = (torch.autograd.grad, torch.autograd.backward,
              torch.Tensor.backward)
 
 
-def _on_replicated_locals(func, args, kwargs):
-    """``func`` on the local tensors of its inputs replicated, its tensor
-    results replicated ``DTensor`` s: for an operation ``DTensor`` has no
-    sharding rule for (the MoE routing's ``searchsorted``)."""
-    from torch.distributed.tensor import DTensor, Replicate
-    from torch.utils._pytree import tree_leaves, tree_map
-
-    mesh = next(x.device_mesh for x in tree_leaves((args, kwargs))
-                if type(x).__name__ == "DTensor")
-    a, k = tree_map(lambda x: _replicated(x, False).to_local()
-                    if type(x).__name__ == "DTensor" else x, (args, kwargs))
-    return tree_map(lambda t: DTensor.from_local(
-        t, mesh, [Replicate()] * mesh.ndim, run_check=False)
-        if isinstance(t, torch.Tensor) else t, func(*a, **k))
+def _local_dims(name: str, args) -> Optional[range]:
+    """The dims along which ``name(*args)`` runs on local shards as it
+    would on the whole tensor, for the operations ``DTensor`` mishandles:
+    ``log_sigmoid``, whose backward it has no rule for, and ``pad`` (the
+    chunked scans' padding of the sequence), whose result torch 2.11
+    misplaces; ``None`` for any other call."""
+    if not args or not is_dtensor(args[0]):
+        return None
+    if name == "log_sigmoid":
+        return range(args[0].ndim)
+    if name == "pad" and len(args) > 1:
+        return range(args[0].ndim - len(args[1]) // 2)
+    return None
 
 
 class _Partitioner(torch.overrides.TorchFunctionMode):
@@ -327,15 +493,21 @@ class _Partitioner(torch.overrides.TorchFunctionMode):
     what its forward saved):
 
     * a product with a weight takes the tensor-parallel layout
-      (:func:`_tensor_parallel_product`);
+      (:func:`_tensor_parallel_product`), and its backward gathers the
+      activation again (:class:`_Regathered`);
+    * a two-operand ``einsum`` keeps its operands' split dims
+      (:func:`_einsum_split`), where ``DTensor`` may gather a batch dim;
+    * a lookup in a table split along its rows is partitioned
+      (:func:`_lookup_split`), where ``DTensor`` would move the table;
     * ``log_softmax`` and ``gather`` along a split dim are partitioned
       (:func:`_split_reduction`), where ``DTensor`` would gather the
       vocabulary-wide logits;
+    * ``log_sigmoid`` and ``pad`` run on the local shards
+      (:func:`_local_dims`);
     * an operation ``DTensor`` refuses on its inputs' layouts (a reshape
       that splits a dim sharded unevenly, as whisper's 6 heads over a
       16-way axis do) is retried with the inputs replicated outside the
-      batch dim, then replicated whole; one it has no rule for runs on the
-      replicated inputs' local tensors (:func:`_on_replicated_locals`).
+      batch dim, then replicated whole.
     """
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
@@ -344,9 +516,19 @@ class _Partitioner(torch.overrides.TorchFunctionMode):
         kwargs = kwargs or {}
         if func in _NO_RETRY:           # a retry cannot rerun a backward
             return func(*args, **kwargs)
+        name = getattr(func, "__name__", "")
         try:
-            if getattr(func, "__name__", "") in ("matmul", "__matmul__"):
+            if name in ("matmul", "__matmul__"):
                 return _tensor_parallel_product(func, *args, **kwargs)
+            if _is_einsum(func, args, kwargs):
+                return _einsum_split(*args)
+            lookup = _lookup_call(func, args)
+            if lookup is not None:
+                return _lookup_split(*lookup)
+            dims = _local_dims(name, args)
+            if dims is not None:
+                return on_local_shards(lambda x: func(x, *args[1:], **kwargs),
+                                       (args[0],), dims, spread=())
             out = _split_reduction(func, args, kwargs)
             return func(*args, **kwargs) if out is None else out
         except _REFUSALS as e:
@@ -361,8 +543,6 @@ class _Partitioner(torch.overrides.TorchFunctionMode):
                 return func(*a, **k)
             except _REFUSALS as e:
                 err = e
-        if isinstance(err, (NotImplementedError, AssertionError)):
-            return _on_replicated_locals(func, args, kwargs)
         raise err
 
 
@@ -463,13 +643,13 @@ def build_step(arch: Any, shape_name: str, multi_pod: bool = False,
         args = (distribute_tree(params, pspecs, mesh),
                 distribute_tree(opt, ospecs, mesh),
                 distribute_tree(batch, bspecs, mesh))
-        meta["argument_bytes"] = sum(local_bytes(a) for a in args)
+        meta["arguments"] = args
         return traced(step, *args), meta
     if kind == "prefill":
         step = make_prefill_step(cfg)
         args = (distribute_tree(params, pspecs, mesh),
                 distribute_tree(batch, bspecs, mesh))
-        meta["argument_bytes"] = sum(local_bytes(a) for a in args)
+        meta["arguments"] = args
         return traced(step, *args), meta
     ring = bool(shape_name == "long_500k"
                 and cfg.arch_type not in ("ssm", "hybrid"))
@@ -494,7 +674,7 @@ def build_step(arch: Any, shape_name: str, multi_pod: bool = False,
     step = make_serve_step(cfg, ring=ring)
     args = (distribute_tree(params, pspecs, mesh),
             distribute_tree(cache, cspecs, mesh), token)
-    meta["argument_bytes"] = sum(local_bytes(a) for a in args)
+    meta["arguments"] = args
     return traced(step, *args), meta
 
 
@@ -508,12 +688,16 @@ def analyze(run: Callable[[], Any], meta: Dict[str, Any]) -> Dict[str, Any]:
     ``hlo_bytes`` are ``flops`` and ``bytes`` here; ``trace_seconds``
     takes the place of the compile-only keys)."""
     res = dict(meta)
-    argument = res.pop("argument_bytes")
+    arguments = res.pop("arguments")
     t0 = time.time()
     out, counter = op_cost.measure(run)
     res["trace_seconds"] = time.time() - t0
     outs = [t for t in shd.leaves(out) if isinstance(t, torch.Tensor)]
     output = local_bytes(outs)
+    # the arguments the step reads or hands back: XLA drops the others
+    used = counter.reads | {
+        op_cost.storage_key(getattr(t, "_local_tensor", t)) for t in outs}
+    argument = local_bytes(arguments, used)
     res["bytes_per_device"] = {
         "argument": argument,
         "output": output,

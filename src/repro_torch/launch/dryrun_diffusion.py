@@ -25,7 +25,7 @@ import torch
 from repro_torch.diffusion.config import REAL
 from repro_torch.diffusion.mmdit import init_mmdit, mmdit_apply
 from repro_torch.launch.dryrun import (analyze, distribute, distribute_tree,
-                                       local_bytes, meta_tree, partitioned)
+                                       meta_tree, partitioned)
 from repro_torch.launch.mesh import axis_names, axis_sizes, make_production_mesh
 from repro_torch.launch.sharding import P, leaves, map_with_path
 
@@ -79,7 +79,7 @@ def build(family: str, batch: int = 8, mesh=None
             "mesh": "x".join(str(n) for n in axis_sizes(mesh).values()),
             "kind": "prefill", "params": float(n_params),
             "active_params": float(n_params),
-            "argument_bytes": sum(local_bytes(a) for a in args)}
+            "arguments": args}
     return run, meta
 
 

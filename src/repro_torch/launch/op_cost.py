@@ -31,6 +31,10 @@ is not counted.
   port counts each functional collective once.
 * **Memory**: the bytes of the live tensors this partition's operations
   made, and their peak over the run (the arguments not included).
+* **Reads**: the storages whose values some operation read (a view reads
+  nothing, nor does an operation that takes only its input's shape), so
+  that the dry run counts as arguments only the tensors a step reads, as
+  XLA keeps only the arguments its program uses.
 """
 
 from __future__ import annotations
@@ -51,6 +55,9 @@ _KINDS = (("all_gather", "all-gather"), ("reduce_scatter", "reduce-scatter"),
 _NOT_PAYLOAD = ("wait_tensor", "wrap_tensor")
 _NO_WRITE = ("empty", "empty_like", "empty_strided", "new_empty",
              "new_empty_strided")
+# operations that take only their inputs' shapes and dtypes
+_NO_READ = _NO_WRITE + ("zeros_like", "ones_like", "full_like", "new_zeros",
+                        "new_ones", "new_full")
 
 
 def _nbytes(t: Any) -> int:
@@ -65,6 +72,11 @@ def _collective_kind(name: str):
         if key in name:
             return kind
     return None
+
+
+def storage_key(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage, which its views share."""
+    return t.untyped_storage()._cdata
 
 
 def _under_fake_mode(args: Any) -> bool:
@@ -89,6 +101,7 @@ class OpCost(TorchDispatchMode):
         self.collectives: Dict[str, float] = {}
         self.live = 0
         self.peak = 0
+        self.reads: set = set()
 
     def _free(self, n: int) -> None:
         self.live -= n
@@ -115,6 +128,8 @@ class OpCost(TorchDispatchMode):
             self.collectives[kind] = self.collectives.get(kind, 0.0) + b
         if func.is_view or any(k in name for k in _NOT_PAYLOAD):
             return out                  # aliases and bookkeeping: no bytes
+        if not name.endswith(_NO_READ):
+            self.reads.update(storage_key(t) for t in ins)
         if not name.endswith(_NO_WRITE):
             self.bytes += sum(_nbytes(t) for t in ins) + sum(
                 _nbytes(t) for t in outs)

@@ -32,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.meta import on_labelled_shards, on_local_shards
 from repro_torch.kernels.rglru_scan.ref import linear_scan
 from repro_torch.models import transformer as tfm
 from repro_torch.models.act_sharding import constrain
@@ -126,19 +127,34 @@ def _mlstm_gates(p: Params, xn: torch.Tensor, cfg: ArchConfig):
 def mlstm_chunked(p: Params, x: torch.Tensor, cfg: ArchConfig,
                   state: Optional[Tuple] = None
                   ) -> Tuple[torch.Tensor, Tuple]:
-    """x: [B,S,d]; S must be a multiple of the chunk (padded upstream)."""
+    """x: [B,S,d]; S must be a multiple of the chunk (padded upstream).
+    Under a ``DTensor`` trace the chunks run on each shard's own rows and
+    heads."""
     b, s, d = x.shape
     hh, hd = cfg.n_heads, cfg.d_model // cfg.n_heads
     c = min(cfg.ssm_chunk, s)
     xn = rms_norm(x, p["norm"])
     q, k, v, ig, lf = _mlstm_gates(p, xn, cfg)
-    if state is None:
-        C = torch.zeros((b, hh, hd, hd), device=x.device)
-        n = torch.zeros((b, hh, hd), device=x.device)
-    else:
-        C, n = state
-    tmask = (torch.arange(c, device=x.device)[:, None]
-             >= torch.arange(c, device=x.device)[None, :])
+    state = () if state is None else tuple(state)
+    h, C, n = on_labelled_shards(
+        lambda *t: _mlstm_chunks(c, *t), (q, k, v, ig, lf, *state),
+        "bshd,bshd,bshe,bsh,bsh" + ",bhde,bhd" * bool(state)
+        + "->bshe,bhde,bhd", "bh")
+    h = h.reshape(b, s, hh * hd)
+    og = torch.sigmoid(xn @ p["wog"])
+    out = (h.to(x.dtype) * og) @ p["wo"]
+    return x + out, (C, n)
+
+
+def _mlstm_chunks(c: int, q, k, v, ig, lf, C=None, n=None):
+    """The chunked mLSTM over ``[B, S, H, hd]`` gates from the state ``(C,
+    n)`` (zeros if not given): ``(h [B, S, H, hd], C, n)``."""
+    b, s, hh, hd = q.shape
+    if C is None:
+        C = torch.zeros((b, hh, hd, hd), device=q.device)
+        n = torch.zeros((b, hh, hd), device=q.device)
+    tmask = (torch.arange(c, device=q.device)[:, None]
+             >= torch.arange(c, device=q.device)[None, :])
     hs = []
     for lo in range(0, s, c):
         qc, kc, vc = (t[:, lo:lo + c] for t in (q, k, v))
@@ -165,10 +181,7 @@ def mlstm_chunked(p: Params, x: torch.Tensor, cfg: ArchConfig,
         C = C * end[:, :, None, None] + torch.einsum(
             "bshd,bshe->bhde", kw, vc.float())
         n = n * end[:, :, None] + kw.sum(dim=1)
-    h = torch.cat(hs, dim=1).reshape(b, s, hh * hd)
-    og = torch.sigmoid(xn @ p["wog"])
-    out = (h.to(x.dtype) * og) @ p["wo"]
-    return x + out, (C, n)
+    return torch.cat(hs, dim=1), C, n
 
 
 def mlstm_decode(p: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -208,7 +221,8 @@ def slstm_forward(p: Params, x: torch.Tensor, cfg: ArchConfig,
     iz = i * z
     if state is not None:
         iz[:, 0] += f[:, 0] * state          # carry-in: f_1 * c_0
-    _, cseq = linear_scan(f, iz)
+    _, cseq = on_local_shards(linear_scan, (f, iz), (0, 2), n_out=2,
+                              spread=())
     out = (o * cseq.to(x.dtype)) @ p["wo"]
     return x + out, cseq[:, -1]
 

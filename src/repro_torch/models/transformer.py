@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.meta import on_labelled_shards, on_local_shards
 from repro_torch.models import act_sharding
 from repro_torch.models.act_sharding import constrain
 from repro_torch.models.base import ArchConfig
@@ -167,33 +168,48 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
 def route(p: Params, x: torch.Tensor, cfg: ArchConfig
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each token's top-k experts and their renormalised weights, ``[T, k]``
-    each.  A stable descending sort puts the lower expert first on a tie,
-    as ``jax.lax.top_k`` does."""
-    probs = torch.softmax((x @ p["router"]).float(), dim=-1)     # [T, E]
+    each."""
+    return _top_k(x @ p["router"], cfg)
+
+
+def _top_k(logits: torch.Tensor, cfg: ArchConfig
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`route` from the router's logits ``[T, E]``.  A stable
+    descending sort puts the lower expert first on a tie, as
+    ``jax.lax.top_k`` does."""
+    probs = torch.softmax(logits.float(), dim=-1)                # [T, E]
     top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p = top_p[:, :cfg.experts_per_token]
     top_e = top_e[:, :cfg.experts_per_token]
     return top_p / top_p.sum(dim=-1, keepdim=True), top_e
 
 
-def _moe_route(p: Params, x: torch.Tensor, cfg: ArchConfig, cap: int):
-    """Sort the (token, expert) pairs by expert and scatter each token into
-    its expert's buffer at its rank; ranks >= ``cap`` are dropped.
-    Returns (buf [E, C, d], se, st, sp, rank)."""
-    t, d = x.shape
+def _moe_order(logits: torch.Tensor, cfg: ArchConfig):
+    """Sort one group's (token, expert) pairs by expert, from its router
+    logits ``[t, E]``: (se, st, sp, rank) ``[t*k]`` each, a pair's rank
+    its place in its expert's buffer."""
+    t = logits.shape[0]
     e, k = cfg.n_experts, cfg.experts_per_token
-    top_p, top_e = route(p, x, cfg)
+    top_p, top_e = _top_k(logits, cfg)
     flat_e = top_e.reshape(-1)
     flat_p = top_p.reshape(-1)
-    flat_t = torch.arange(t, device=x.device).repeat_interleave(k)
+    flat_t = torch.arange(t, device=logits.device).repeat_interleave(k)
     order = torch.argsort(flat_e, stable=True)
     se, st, sp = flat_e[order], flat_t[order], flat_p[order]
-    starts = torch.searchsorted(se, torch.arange(e, device=x.device))
-    rank = torch.arange(t * k, device=x.device) - starts[se]
+    starts = torch.searchsorted(se, torch.arange(e, device=logits.device))
+    rank = torch.arange(t * k, device=logits.device) - starts[se]
+    return se, st, sp, rank
+
+
+def _moe_scatter(x: torch.Tensor, se, st, rank, e: int,
+                 cap: int) -> torch.Tensor:
+    """Scatter each of one group's tokens ``x`` [t, d] into its expert's
+    buffer at its rank: [E, C, d]; ranks >= ``cap`` are dropped."""
     # dropped pairs land in a dump row past the capacity, cut off after
-    buf = torch.zeros((e, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((e, cap + 1, x.shape[-1]), dtype=x.dtype,
+                      device=x.device)
     buf[se, rank.clamp(max=cap)] = x[st]
-    return buf[:, :cap], se, st, sp, rank
+    return buf[:, :cap]
 
 
 def _moe_combine(out: torch.Tensor, se, st, sp, rank, t: int) -> torch.Tensor:
@@ -205,9 +221,25 @@ def _moe_combine(out: torch.Tensor, se, st, sp, rank, t: int) -> torch.Tensor:
                        device=out.device).index_add_(0, st, contrib)
 
 
+def _per_group(fn, *groups: torch.Tensor):
+    """``fn`` on each group (the dim 0 of every input), its results
+    stacked."""
+    out = [fn(*g) for g in zip(*groups)]
+    if isinstance(out[0], tuple):
+        return tuple(torch.stack(r) for r in zip(*out))
+    return torch.stack(out)
+
+
 def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """x: [T, d] token-flattened; dispatched in G group-local routings
-    (``act_sharding.moe_groups()``, 1 unless a caller installs more)."""
+    (``act_sharding.moe_groups()``, 1 unless a caller installs more).
+
+    Under a ``DTensor`` trace each step runs on its shard's own groups, as
+    the JAX package's vmap over the groups (which ride the data axis) is
+    partitioned: the router's products on the tokens split along ``d``
+    (their partial logits all-reduced), the routing on the whole logits,
+    and the scatter into the buffers on the split tokens (the buffers are
+    gathered by the dispatch constraint)."""
     t, d = x.shape
     g = act_sharding.moe_groups()
     if t % g != 0 or t // g < cfg.n_experts:
@@ -215,16 +247,26 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     tg = t // g
     cap = int(cfg.capacity_factor * tg * cfg.experts_per_token / cfg.n_experts)
     cap = max(8, min(cap, tg))
-    routes = [_moe_route(p, xl, cfg, cap) for xl in x.reshape(g, tg, d)]
-    bufs = act_sharding.constrain_moe(torch.stack([r[0] for r in routes]),
-                                      "dispatch")          # [G, E, C, d]
+    xg = x.reshape(g, tg, d)
+    logits = on_labelled_shards(
+        lambda xg, r: _per_group(lambda xl: xl @ r, xg), (xg, p["router"]),
+        "gtd,de->gte", "gd")
+    se, st, sp, rank = on_local_shards(
+        lambda lg: _per_group(lambda lt: _moe_order(lt, cfg), lg), (logits,),
+        (0,), n_out=4, spread=())
+    bufs = on_labelled_shards(
+        lambda *a: _per_group(
+            lambda *ga: _moe_scatter(*ga, e=cfg.n_experts, cap=cap), *a),
+        (xg, se, st, rank), "gtd,gk,gk,gk->gecd", "gd")
+    bufs = act_sharding.constrain_moe(bufs, "dispatch")    # [G, E, C, d]
     h = F.silu(torch.einsum("gecd,edf->gecf", bufs, p["moe_gate"]))
     h = h * torch.einsum("gecd,edf->gecf", bufs, p["moe_up"])
     h = act_sharding.constrain_moe(h, "hidden")            # [G, E, C, ff]
     out = torch.einsum("gecf,efd->gecd", h, p["moe_down"])
     out = act_sharding.constrain_moe(out, "out")           # [G, E, C, d]
-    yg = torch.stack([_moe_combine(out[i], *routes[i][1:], t=tg)
-                      for i in range(g)])
+    yg = on_local_shards(
+        lambda *a: _per_group(lambda *ga: _moe_combine(*ga, t=tg), *a),
+        (out, se, st, sp, rank), (0,), spread=())
     return yg.reshape(t, d).to(x.dtype)
 
 

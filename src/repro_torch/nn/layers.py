@@ -367,7 +367,8 @@ def gqa_attention(
       among it, takes the plain dense path.
 
     ``DTensor`` inputs (the dry run's trace) have their kv heads repeated
-    to the query heads, then run on their batch and head shards.
+    to the query heads, then run on their batch and head shards (heads
+    that do not divide the model axis split as far as they do).
     """
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
@@ -384,7 +385,7 @@ def gqa_attention(
             lambda q, k, v: gqa_attention(
                 q, k, v, causal=causal, window=window, q_offset=q_offset,
                 mask=None if mask is None else mask[:q.shape[0]],
-                softmax_scale=softmax_scale), (q, k, v), (0, 2))
+                softmax_scale=softmax_scale), (q, k, v), (0, 2), spread=(2,))
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     if (_flash_enabled and not causal and window is None and mask is None
             and q_offset == 0 and softmax_scale is None and sq == sk

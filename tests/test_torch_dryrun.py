@@ -20,7 +20,9 @@ the CPU the JAX package's flash attention is a Pallas kernel in interpret
 mode, whose loop XLA cannot partition, so it is replicated on every
 device and its operands all-gathered inside the loop; its numbers are
 printed beside the others.  Last, the CLI end to end on the production
-mesh."""
+mesh.  The other architectures, shapes and families are held in
+``test_torch_dryrun_*.py`` through :func:`cases_reference` and
+:func:`check_case`."""
 
 import json
 import os
@@ -76,13 +78,11 @@ print(json.dumps(out, default=float))
 """
 
 
-@pytest.fixture(scope="module")
-def reference():
-    """The JAX package's numbers, from a subprocess started before the
-    port's first trace, so that the two overlap."""
-    code = (f"SHAPES = {SHAPES!r}\nNARROW = {NARROW!r}\n"
-            f"FSDP_SHAPES = {FSDP_SHAPES!r}\n"
-            + textwrap.dedent(_REFERENCE))
+def spawn_reference(code):
+    """Start ``code`` (the JAX package's side, which prints one JSON object
+    last) in a subprocess; yields a function that waits for it and returns
+    the object, and kills the subprocess after (a generator for a
+    module-scoped fixture)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.Popen([sys.executable, "-c", code], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -99,6 +99,85 @@ def reference():
     yield get
     if proc.poll() is None:
         proc.kill()
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """The JAX package's numbers, from a subprocess started before the
+    port's first trace, so that the two overlap."""
+    yield from spawn_reference(
+        f"SHAPES = {SHAPES!r}\nNARROW = {NARROW!r}\n"
+        f"FSDP_SHAPES = {FSDP_SHAPES!r}\n" + textwrap.dedent(_REFERENCE))
+
+
+# the JAX package's side of the files that hold every architecture and
+# diffusion family against it (test_torch_dryrun_*.py): CASES holds
+# (arch or family, shape, variant) triples; flash attention is off (see
+# the module's docstring), and the variant "adafactor" makes
+# ``param_count`` read 2e11, which puts a train step on Adafactor (and 32
+# microbatches)
+_CASES_REFERENCE = """
+import os, json
+os.environ['XLA_FLAGS'] = '--xla_force_host_platform_device_count=8'
+import jax, numpy as np
+from jax.sharding import Mesh
+from repro.configs import ARCHS
+from repro.launch import dryrun as dr, dryrun_diffusion as dd
+from repro.models.base import ArchConfig
+import repro.nn.layers as layers
+mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ('data', 'model'))
+layers.set_flash_attention(False)
+keys = ('hlo_flops', 'hlo_bytes', 'collectives', 'bytes_per_device')
+count = ArchConfig.param_count
+out = {}
+for arch, shape, variant in CASES:
+    ArchConfig.param_count = ((lambda self: 2e11) if variant == 'adafactor'
+                              else count)
+    if arch in dd.REAL:
+        lowered, meta = dd.build(arch, 4, mesh)
+    else:
+        lowered, meta = dr.build_lowered(ARCHS[arch].reduced(), shape,
+                                         mesh=mesh)
+    r = dr.analyze(lowered, meta)
+    out[' '.join((arch, shape, variant)).strip()] = {
+        k: r[k] for k in keys}
+print(json.dumps(out, default=float))
+"""
+
+
+def cases_reference(cases):
+    """A module-scoped fixture's generator of the JAX package's numbers for
+    ``cases`` (see ``_CASES_REFERENCE``), keyed by ``case_key``."""
+    return spawn_reference(f"CASES = {list(cases)!r}\n"
+                           + textwrap.dedent(_CASES_REFERENCE))
+
+
+def case_key(case) -> str:
+    return " ".join(case).strip()
+
+
+def check_case(case, mesh, reference, monkeypatch):
+    """Trace ``case`` on the port's side and hold it against the
+    reference's under :func:`_check`'s gates; returns the port's report."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.diffusion.config import REAL
+    from repro_torch.launch import dryrun, dryrun_diffusion
+    from repro_torch.models.base import ArchConfig
+
+    arch, shape, variant = case
+    if variant == "adafactor":
+        monkeypatch.setattr(ArchConfig, "param_count", lambda self: 2e11)
+    if arch in REAL:
+        run, meta = dryrun_diffusion.build(arch, 4, mesh)
+    else:
+        run, meta = dryrun.build_step(ARCHS[arch].reduced(), shape,
+                                      mesh=mesh)
+    got = dryrun.analyze(run, meta)
+    assert got["per_partition"] and got["mesh"] == "2x4"
+    name = arch if arch in REAL else f"{arch}-reduced"
+    _check(f"{name} x {shape} {variant}".strip(), got,
+           reference()[case_key(case)])
+    return got
 
 
 @pytest.fixture(scope="module")
