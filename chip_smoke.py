@@ -8,14 +8,17 @@ Phases (any failed check raises, and the script exits non-zero):
 1. Card: name and power limit, versions, and the build of every CUDA
    kernel from the checkout's sources (one ``nvcc`` per source, all six
    started together, into ``build/``), with ptxas's registers and spills;
-   every instantiation of the int8 route's two kernels is listed by name
-   and must spill nothing.
+   every instantiation of flash attention's forward and of the int8
+   route's two kernels is listed by name; the int8 kernels and flash
+   attention's head-dim-128 tiles must spill nothing.
 2. Each kernel against its plain PyTorch version on the card.  Flash
    attention: the JAX package's kernel grid (f32 atol 2e-5, bf16 3e-2),
-   causal and window bands at head dims 64 and 1024 (wholly masked tiles
-   and chunks, rows with no key), 17000 keys at head dim 1024 (a merge of
-   266 chunks), and the four full-width path shapes at
-   f32, (48 | 96 | 144, 4429, 64) and (4 | 8, 333, 1024) (atol 2e-5: the
+   causal and window bands at head dims 64, 128 (f32 and bf16) and 1024
+   (wholly masked tiles and chunks, rows with no key, rectangular shapes
+   at 128), 17000 keys at head dim 1024 (a merge of 266 chunks), and the
+   full-width path shapes at f32, (48 | 96 | 144, 4429, 64), (4 | 8, 333,
+   1024) and phase 4f's (24, 4608, 128), (76, 4429, 64) and (4, 512,
+   1024) (atol 2e-5: the
    kernel's 3xTF32 products keep about 20 bits, the plain version's f32
    FMAs 24; TF32 is off in the plain version).  The split-KV route's two
    kernels on their own: the partials against ``attention_partial_ref``
@@ -74,6 +77,27 @@ Phases (any failed check raises, and the script exits non-zero):
    the warm system under ``torch.profiler``; device time by kernel, the
    attention kernels' share (``FLASH_KERNELS``: every CUDA kernel the flash
    wrapper launches), and the card's idle share of the wall time.
+4f. Table 2's other families at published width, once phase 4's system is
+   freed (``family_phase``): one ``flux-schnell:basic`` request at
+   ``REAL["flux-dev"]`` (flux-schnell's backbone: d 3072, 57 layers, 24
+   heads of 128, 4096 + 512 tokens, no CFG rows) and one
+   ``sd3.5-large:basic`` request at ``REAL["sd3.5-large"]`` (d 2432, 38
+   layers, 38 heads of 64, CFG rows), ``STEPS`` steps each (flux-schnell's
+   published count), each on a fresh ``ServingSystem(n_executors=1,
+   backend=LocalBackend(device="cuda"))`` freed before the next.  Counts
+   set to 0 just before and read just after: flash attention exactly a
+   launch per layer and step plus 2 for the text encoder (230 and 154),
+   at the shapes ``expected_flash`` reckons, no other kernel.  Each image
+   (1, 1024, 1024, 3), finite, in [-1, 1], and within
+   ``KERNEL_VS_PLAIN_REL`` of the same request served through the plain
+   attention route.  Printed: wall, peak memory, the plain route's wall.
+5f. Flash attention at each shape phase 4f gave it that phase 5 did not
+   cover ((24, 4608, 4608, 128), (76, 4429, 4429, 64), (4, 512, 512,
+   1024)), held against the plain version (f32 atol 2e-5) and timed as in
+   phase 5, both bounds included.
+6f. Where the time goes on each family's request: served again on its warm
+   system under the profiler (inside 4f); flash attention and the f32
+   GEMMs by device time and share of busy time, and the idle share.
 4b. The LoRA path: sd3:lora:tenantA, sd3:lora:tenantB and sd3:basic served
    together at full width, 4 steps, on one card with the multilora
    scheduler and the passes of the JAX package's multi-tenant test
@@ -339,8 +363,9 @@ Phases (any failed check raises, and the script exits non-zero):
    exit 0 with its ``OK`` lines; printed: the lines and each process's
    wall.
 
-The phases run in the order 1, 2, 3, 4, 5, 6, 4q, 5q, 6q, 4b, 4c, 5b, 6b,
-5c, 4n, 5n, 4nq, 6n, 7l, 5l, 7p, 7s, 5s, 8h, 8w, 8d, 8s, 8z, 9w, 9h, 10
+The phases run in the order 1, 2, 3, 4, 5, 6, 4f (with 6f), 5f, 4q, 5q,
+6q, 4b, 4c, 5b, 6b, 5c, 4n, 5n, 4nq, 6n, 7l, 5l, 7p, 7s, 5s, 8h, 8w, 8d,
+8s, 8z, 9w, 9h, 10
 (whose processes start before phase 1).  Before the last two lines, one
 JSON ``kernels`` line
 lists every kernel, ``quantize_rows`` (which replaces plain code, not a
@@ -348,7 +373,8 @@ Pallas kernel) among them: its ``launches`` are the count from its own
 path's run (the single-adapter LoRA kernel has no serving path: 0;
 ``rglru_scan``'s are phase 8h's prefill; ``launches_by_path`` gives each
 path's count where a kernel has several, the sharded plane's under
-``sharded``, whisper-tiny's prefill and train run among flash
+``sharded``, phase 4f's under ``flux-schnell:basic`` and
+``sd3.5-large:basic``, whisper-tiny's prefill and train run among flash
 attention's; the backward kernels' are phase 9's 3-step runs), and each
 leads with the largest shape its path launched (``rglru_scan`` with its
 served shape), the others under ``other_shapes``.  The line before the last
@@ -381,10 +407,11 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12,
               "tf32": 495e12}
 # every CUDA kernel the flash-attention wrapper launches, by route: the
-# CUDA-core template, the D = 64 tensor-core tiles, the D = 1024 split-KV
-# grid and its merge
+# CUDA-core template, the D = 64 and D = 128 tensor-core tiles, the D = 1024
+# split-KV grid and its merge
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_mma64_kernel",
-                 "flash_splitkv_kernel", "flash_merge_kernel")
+                 "flash_mma128_kernel", "flash_splitkv_kernel",
+                 "flash_merge_kernel")
 # every CUDA kernel the LoRA wrappers launch: the x @ A pre-pass and the GEMM
 LORA_KERNELS = ("lora_xa_kernel", "lora_matmul_kernel")
 # every CUDA kernel the quant_matmul wrapper launches: the GEMM and, for a
@@ -399,6 +426,19 @@ GEMM_KERNELS = ("gemm",)
 # request served through the plain attention route, relative
 KERNEL_VS_PLAIN_REL = 1e-3
 
+# head dim 128 (Flux's heads) under causal and window bands, on ragged and
+# rectangular shapes and rows with no key; f32 and bf16
+D128_BANDS = (((3, 500, 500, 128), True, None), ((2, 300, 300, 128), True, 37),
+              ((1, 200, 150, 128), True, 1), ((3, 100, 333, 128), False, None),
+              ((2, 333, 100, 128), False, None))
+# phase 4f: Table 2's other families at published width, one basic request
+# each at STEPS steps (flux-schnell's published count is 4): the family and
+# the REAL config it takes (flux-schnell shares flux-dev's backbone)
+FAMILY_RUNS = (("flux-schnell", "flux-dev"), ("sd3.5-large", "sd3.5-large"))
+# their joint attention (one request: Flux without CFG rows, SD3.5-Large
+# with) and Flux's text encoder (4 heads of 1024 over 512 tokens)
+FAMILY_SHAPES = ((24, 4608, 4608, 128), (76, 4429, 4429, 64),
+                 (4, 512, 512, 1024))
 GRID = [  # (BH, Sq, Sk, D), causal, window — tests/test_kernels.py's grid
     ((2, 128, 128, 64), False, None),
     ((2, 256, 256, 32), True, None),
@@ -1215,18 +1255,19 @@ def n_controlnets(model_id) -> int:
     return model_id.count("+controlnet")
 
 
-def expected_flash(dispatch_log, cfg) -> tuple:
+def expected_flash(dispatch_log, family) -> tuple:
     """Flash-attention launches the dispatches must have made, and the
     shapes they gave the kernel: per step, a layer's launch for each of the
-    backbone's (on the CFG-doubled rows) and each ControlNet's (on the
-    latent rows)."""
-    expected, shapes = 0, set()
+    backbone's (on the CFG-doubled rows where the family uses CFG) and each
+    ControlNet's (on the latent rows)."""
+    cfg, expected, shapes = family.toy, 0, set()
+    rows = 2 if family.uses_cfg else 1     # backbone rows a request
     for d in dispatch_log:
         n = len(d.nodes)
         if d.model_id.startswith("segment:"):
             cns = n_controlnets(d.model_id)
             expected += d.segment_steps * (cfg.n_layers + cns * cn_layers(cfg))
-            shapes.add((2 * n * cfg.n_heads, cfg.tokens, cfg.tokens,
+            shapes.add((rows * n * cfg.n_heads, cfg.tokens, cfg.tokens,
                         cfg.head_dim))
             if cns:
                 shapes.add((n * cfg.n_heads, cfg.tokens, cfg.tokens,
@@ -1236,7 +1277,7 @@ def expected_flash(dispatch_log, cfg) -> tuple:
             shapes.add((n * cfg.n_heads, cfg.tokens, cfg.tokens, cfg.head_dim))
         elif d.model_id.startswith("backbone:"):
             expected += cfg.n_layers
-            shapes.add((2 * n * cfg.n_heads, cfg.tokens, cfg.tokens,
+            shapes.add((rows * n * cfg.n_heads, cfg.tokens, cfg.tokens,
                         cfg.head_dim))
         elif d.model_id.startswith("text_encoder:"):
             expected += 2                      # two layers
@@ -1258,6 +1299,97 @@ def s1_model_set(family, cn_weights, device="cuda"):
     ms.vae_dec.weights = ms.vae_enc.weights = ms.vae_dec.load(device)["params"]
     ms.cn1.weights, ms.cn2.weights = cn_weights[1], cn_weights[2]
     return ms
+
+
+def family_phase(torch, card, counters, device="cuda", real=None) -> dict:
+    """Phase 4f (the docstring's 4f and 6f): one ``<family>:basic`` request
+    of each of ``FAMILY_RUNS`` at the family's REAL width (``real`` maps
+    the configs' names, ``REAL`` by default), each on a fresh one-executor
+    ``ServingSystem`` freed before the next.  Returns each run's printed
+    numbers under ``runs`` and, under ``flash_shapes``, each flash shape
+    its dispatches gave with the family that gave it."""
+    from repro_torch.core import LocalBackend, ServingSystem
+    from repro_torch.diffusion import FAMILIES, REAL, ModelSet, make_basic_workflow
+    from repro_torch.nn.layers import set_flash_attention
+
+    flash = counters[0]
+    real = real or REAL
+    runs, flash_shapes = {}, {}
+    for name, real_name in FAMILY_RUNS:
+        family = dataclasses.replace(FAMILIES[name], toy=real[real_name])
+        cfg = family.toy
+        system = ServingSystem(n_executors=1, backend=LocalBackend(device=device))
+        system.register(make_basic_workflow(name, ModelSet(family)))
+        subs = [(f"{name}:basic", REQUESTS[0])]
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        req = serve(system, subs, STEPS)[0]
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        dispatches = system.coordinator.dispatch_log
+        expected, shapes = expected_flash(dispatches, family)
+        flash_shapes.update({shape: name for shape in shapes})
+        img = image_of(system, req)
+        check_image(torch, img, card, f"{name}:basic")
+        others = sum(n for k, n in launches.items() if k != flash.__name__)
+        # 24 heads of 128 without CFG rows, or 38 of 64 with them, per layer
+        # and step, and the text encoder's two layers
+        if (launches[flash.__name__] != expected
+                or expected != cfg.n_layers * STEPS + 2 or others):
+            raise AssertionError(
+                f"{name}: flash_attention launched "
+                f"{launches[flash.__name__]} times, expected {expected} "
+                f"({cfg.n_layers} layers x {STEPS} steps + 2); launches "
+                f"{launches}; dispatches "
+                f"{[(d.model_id, len(d.nodes), d.segment_steps) for d in dispatches]}")
+        log(f"[family] {name}:basic at REAL[{real_name!r}] (d {cfg.d_model}, "
+            f"{cfg.n_layers} layers, {cfg.n_heads} heads of {cfg.head_dim}, "
+            f"{cfg.tokens} tokens, CFG {family.uses_cfg}), {STEPS} steps: "
+            f"wall {wall_s:.2f} s (weights drawn on the card included), "
+            f"peak memory {peak_gib:.2f} GiB, flash_attention launches "
+            f"{launches[flash.__name__]} (expected {expected}) at "
+            f"{sorted(shapes)}; image {tuple(img.shape)} range "
+            f"[{float(img.min()):.3f}, {float(img.max()):.3f}]  [{card}]")
+        # the same request through the plain attention route
+        prev = set_flash_attention(False)
+        try:
+            before = flash.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain_req = serve(system, subs, STEPS)[0]
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            if flash.launches != before:
+                raise AssertionError(f"{name}: the plain attention route "
+                                     f"launched the flash-attention kernel")
+        finally:
+            set_flash_attention(prev)
+        plain_img = image_of(system, plain_req)
+        e = rel(img, plain_img)
+        if not e < KERNEL_VS_PLAIN_REL:
+            raise AssertionError(f"{name}: image through the kernel vs the "
+                                 f"plain attention route: rel err {e}")
+        log(f"[family] {name}: image through the kernel vs the plain "
+            f"attention route rel err {e:.3e} < {KERNEL_VS_PLAIN_REL}, "
+            f"max|diff| {float((img - plain_img).abs().max()):.3e}; the plain "
+            f"route served it in {plain_s:.2f} s (weights loaded)  [{card}]")
+        del plain_req, plain_img, img, req
+        # 6f. where the time goes: the request again on the warm system
+        prof = profile_path(torch, system, subs, card, f"{name}:basic",
+                            {"flash_attention": FLASH_KERNELS,
+                             "f32_gemms": GEMM_KERNELS})
+        runs[name] = {"wall_s": wall_s, "plain_route_s": plain_s,
+                      "peak_gib": peak_gib,
+                      "flash_launches": launches[flash.__name__],
+                      "kernel_vs_plain_rel": e, "profile": prof}
+        del system, dispatches
+        free(torch)
+    return {"runs": runs, "flash_shapes": flash_shapes}
 
 
 def replay_trace(torch, ms, flags, argv, counters):
@@ -1328,7 +1460,7 @@ def trace_phase(torch, family, cn_weights, card, counters, device="cuda"):
             raise AssertionError(f"trace {label}: the flags did not reach the "
                                  f"coordinator ({c.overlap}) and the "
                                  f"segments ({seg_flags})")
-        want_flash, run_shapes = expected_flash(c.dispatch_log, cfg)
+        want_flash, run_shapes = expected_flash(c.dispatch_log, family)
         flash_shapes |= run_shapes
         flash_launches.append(launches["flash_attention"])
         others = sum(n for name, n in launches.items()
@@ -3054,14 +3186,18 @@ def main() -> None:
         for line in dict.fromkeys(l.strip() for l in lines
                                   if "registers" in l or "spill" in l):
             log(f"[build] {source.name}: {line}")
-    # every instantiation of the int8 route's kernels, by name: none spills
+    # every instantiation of flash attention's forward and of the int8
+    # route's kernels, by name; the int8 kernels and flash attention's
+    # head-dim-128 tiles must spill nothing
     for source, (lib, _) in zip(sources, built):
-        if source not in (qk.SOURCE, qk.ROWS_SOURCE):
+        if source not in (qk.SOURCE, qk.ROWS_SOURCE, fa.SOURCE):
             continue
         report = ptxas_report(lib.with_suffix(".log").read_text())
         for name, regs, stores, loads in report:
             log(f"[build] {source.name}: {name}: {regs} registers, {stores} "
                 f"bytes spill stores, {loads} bytes spill loads")
+        if source == fa.SOURCE:
+            report = [r for r in report if "flash_mma128_kernel" in r[0]]
         if not report or any(st or ld for _, _, st, ld in report):
             raise AssertionError(f"{source.name}: ptxas reports spills (or no "
                                  f"entry function): {report}")
@@ -3078,6 +3214,7 @@ def main() -> None:
     for shape, causal, window in (((3, 500, 500, 64), True, None),
                                   ((2, 300, 300, 64), True, 37),
                                   ((1, 200, 150, 64), True, 1),
+                                  *D128_BANDS,
                                   ((3, 100, 77, 1024), False, None),
                                   ((2, 333, 333, 1024), True, 70),
                                   ((2, 333, 333, 1024), False, 40),
@@ -3086,10 +3223,15 @@ def main() -> None:
         err = check_attention(torch, fa, shape, causal, window, f32, 2e-5)
         log(f"[kernel] bands {shape} causal={causal} window={window} "
             f"float32: max|err| {err:.2e} <= 2e-05")
+    # head dim 128 in bf16: the CUDA-core template
+    for shape, causal, window in D128_BANDS:
+        err = check_attention(torch, fa, shape, causal, window, bf16, 3e-2)
+        log(f"[kernel] bands {shape} causal={causal} window={window} "
+            f"bfloat16: max|err| {err:.2e} <= 3e-02")
     path_err = 0.0
     for shape in ((48, 4429, 4429, 64), (96, 4429, 4429, 64),
                   (144, 4429, 4429, 64), (4, 333, 333, 1024),
-                  (8, 333, 333, 1024)):
+                  (8, 333, 333, 1024), *FAMILY_SHAPES):
         err = check_attention(torch, fa, shape, False, None, f32, 2e-5)
         path_err = max(path_err, err)
         log(f"[kernel] path {shape} float32: max|err| {err:.2e} <= 2e-05")
@@ -3302,7 +3444,8 @@ def main() -> None:
     others_on_basic = (qk.quant_matmul.launches + qk.quantize_rows.launches
                        + rk.rglru_scan.launches)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    expected, path_shapes = expected_flash(system.coordinator.dispatch_log, cfg)
+    expected, path_shapes = expected_flash(system.coordinator.dispatch_log,
+                                            family)
     fp32_images = []
     for req in reqs:
         if req.status != "done":
@@ -3369,6 +3512,26 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ------------- 4f. Table 2's Flux and SD3.5-Large families at REAL width
+    counters = (fa.flash_attention, lk.lora_matmul, lk.lora_matmul_grouped,
+                qk.quant_matmul, qk.quantize_rows, rk.rglru_scan)
+    log(f"[family] device memory held before phase 4f: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    fam = family_phase(torch, card, counters)
+    # ------------------- 5f. flash attention at the families' own shapes
+    fam_timings = []
+    for shape, name in sorted(fam["flash_shapes"].items(),
+                              key=lambda x: -math.prod(x[0])):
+        if shape in shapes:
+            continue
+        err = check_attention(torch, fa, shape, False, None, f32, 2e-5)
+        errs.append(err)
+        log(f"[kernel] {name} path {shape} float32: max|err| {err:.2e} "
+            f"<= 2e-05")
+        fam_timings.append({**time_attention(torch, fa, shape, f32),
+                            "path": f"{name}:basic (phase 4f)"})
+        log_attention_time(fam_timings[-1], shape, card)
+
     # -------------------------- 4q. full-width basic path under int8
     prev_mode = set_quant_mode("int8")
     real_rows = qops._quantize_rows
@@ -3395,7 +3558,7 @@ def main() -> None:
         q_peak_gib = torch.cuda.max_memory_allocated() / 2**30
         q_log = system.coordinator.dispatch_log
         q_expected, q_shapes = quant_path(q_log, cfg)
-        q_expected_flash, _ = expected_flash(q_log, cfg)
+        q_expected_flash, _ = expected_flash(q_log, family)
         segs = [d for d in q_log if d.model_id.startswith("segment:")]
         if (q_launches != q_expected or not segs
                 or any(d.segment_steps != STEPS for d in segs)):
@@ -3531,7 +3694,7 @@ def main() -> None:
                              f"quant_matmul {qk.quant_matmul.launches}, "
                              f"quantize_rows {qk.quantize_rows.launches}, "
                              f"rglru_scan {rk.rglru_scan.launches}")
-    ml_expected_flash, ml_flash_shapes = expected_flash(log_ml, cfg)
+    ml_expected_flash, ml_flash_shapes = expected_flash(log_ml, family)
     if ml_flash < ml_expected_flash:
         raise AssertionError(f"flash_attention launched {ml_flash} times on "
                              f"the LoRA path, expected >= {ml_expected_flash}")
@@ -3685,7 +3848,7 @@ def main() -> None:
     cn_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     cn_log = system.coordinator.dispatch_log
     cn_dispatches = [(d.model_id, len(d.nodes), d.segment_steps) for d in cn_log]
-    cn_expected_flash, cn_flash_shapes = expected_flash(cn_log, cfg)
+    cn_expected_flash, cn_flash_shapes = expected_flash(cn_log, family)
     # each request's steps ran fused with its ControlNets, in one chunk or
     # several (the scheduler picks the chunk by its queue)
     cn_steps = {}
@@ -3800,7 +3963,7 @@ def main() -> None:
                      + rk.rglru_scan.launches)
         nq_log = q_system.coordinator.dispatch_log
         nq_expected, nq_shapes = quant_path(nq_log, cfg)
-        nq_expected_flash, _ = expected_flash(nq_log, cfg)
+        nq_expected_flash, _ = expected_flash(nq_log, family)
         nq_dispatches = [(d.model_id, len(d.nodes), d.segment_steps)
                          for d in nq_log]
         if (nq_launches != nq_expected or nq_rows != nq_launches
@@ -3875,8 +4038,6 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ------------- 7l. a trace through the serving launcher, S1 at full width
-    counters = (fa.flash_attention, lk.lora_matmul, lk.lora_matmul_grouped,
-                qk.quant_matmul, qk.quantize_rows, rk.rglru_scan)
     trace_shapes, trace_flash = trace_phase(torch, family, cn_weights, card,
                                             counters)
     gc.collect()
@@ -3992,9 +4153,13 @@ def main() -> None:
               "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/kernel.py:109", launches,
               max(errs), main,
-              [t for t in timings if t is not main] + ml_timings + cn_timings
-              + trace_timings + shard_timings + llm_timings,
-              {"basic": launches, "basic int8": q_flash, "lora": ml_flash,
+              [t for t in timings if t is not main] + fam_timings
+              + ml_timings + cn_timings + trace_timings + shard_timings
+              + llm_timings,
+              {"basic": launches,
+               **{f"{name}:basic": run["flash_launches"]
+                  for name, run in fam["runs"].items()},
+               "basic int8": q_flash, "lora": ml_flash,
                "controlnet": cn_flash, "controlnet int8": nq_flash,
                "S1 trace, flags off": trace_flash[0],
                "S1 trace, flags on": trace_flash[1],

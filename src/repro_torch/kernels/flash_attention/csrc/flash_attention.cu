@@ -15,9 +15,12 @@
 // 436 MB: 1.1e3 operations a byte, bound by operations.  On the CUDA cores
 // (f32 FMA, 67 TFLOP/s on an H100 SXM) that bound is 7.2 ms; on the tensor
 // cores with three TF32 passes per product (below) it is 4.8e11 / (495e12 /
-// 3) = 2.9 ms.  The text encoder's attention (BH 4, S 333, D 1024) does
-// 1.8e9 operations on 22 MB: 0.027 ms at the f32 FMA rate, 0.011 ms at the
-// 3xTF32 rate, 0.0065 ms for its bytes.
+// 3) = 2.9 ms.  Flux's joint attention at published width (BH 24, S 4096
+// image + 512 text tokens, D 128, f32, no CFG rows) does 2.6e11 operations
+// on 226 MB: 1.58 ms at the 3xTF32 rate, 3.89 ms at the f32 FMA rate.  The
+// text encoder's attention (BH 4, S 333, D 1024) does 1.8e9 operations on
+// 22 MB: 0.027 ms at the f32 FMA rate, 0.011 ms at the 3xTF32 rate, 0.0065
+// ms for its bytes.
 //
 // Tolerance decision.  The path's f32 gate is atol = rtol = 2e-5 against the
 // plain f32 version.  One TF32 product keeps 10 mantissa bits and misses that
@@ -47,6 +50,22 @@
 //   fragments load as float2.  Row max and sum are quad shuffles.  Tiles
 //   wholly outside the causal or window band are skipped, and tiles with
 //   nothing to mask skip the mask arithmetic.
+// * f32, D = 128 (Flux's heads): flash_mma128_kernel, the D = 64 design with
+//   three changes.  (1) Registers: q's split fragments for the whole sweep
+//   would take 128 registers and the output accumulator 64, so q sits in
+//   shared memory (pre-scaled, 136-float rows) and is split on each read;
+//   P v walks the output one 8-wide n-tile at a time over P split once, so
+//   it holds 4 fresh accumulators, not 64.  (2) Chains: q k^T sums each
+//   64-wide half of D as a chain of 8 mma k steps into fresh registers and
+//   joins the halves with a rounded f32 add; P v over a 64-key tile is 8 k
+//   steps.  (3) Tiles, by measurement at (24, 4608, 128) on an H100
+//   (tools/flash_fwd128_bench.py): 8 warps (128 query rows) a block over
+//   64-key tiles, 207 KB of shared memory (q 70 KB, a 2-stage K/V ring 137
+//   KB) and 253 registers, one block an SM, took 4.48 ms; 4 warps over
+//   64-key tiles (255 registers, one block) 6.36 ms; 4 warps over 32-key
+//   tiles (168 registers, two blocks) 6.35 ms; 8 warps over 32-key tiles
+//   5.60 ms.  Eight warps share each K/V tile, which halves the tile loads
+//   a query row costs.  No variant spills.
 // * f32, D = 1024 (the text encoder's head): a split-KV grid.  With 4 KB a
 //   row of q there is no room for a long K sweep per block, and one block per
 //   (bh, q tile) leaves most of the 132 SMs idle (84 blocks at BH 4).
@@ -65,8 +84,9 @@
 //   kernel grid and toy sizes, and bf16 inputs at any head dim): the CUDA-core
 //   template flash_fwd_kernel, one block per (bh, q tile) sweeping all K/V
 //   tiles, products as f32 FMAs on tiles kept in shared memory with odd row
-//   strides, 64x64 tiles (16x16 at D = 1024).  A rule by shape and type, not
-//   a fallback: nothing falls back at run time.
+//   strides, 64x64 tiles (16x16 at D = 1024; 116 KB of shared memory at
+//   D = 128).  A rule by shape and type, not a fallback: nothing falls back
+//   at run time.  Other head dims are refused (the wrapper raises).
 //
 // For training, the f32 routes at D <= 64 (the tensor-core tiles and the
 // CUDA-core template) also write each row's log-sum-exp of the scaled,
@@ -328,6 +348,53 @@ __device__ __forceinline__ bool visible(int key, int row, int sk, int causal,
          (!has_window || key > row - window);
 }
 
+// Online softmax of one tile's scores in a warp's mma accumulator layout:
+// s[j][e] sits at row (e < 2 ? r0 : r1), key kt + 8j + 2t + (e & 1).  Masks
+// (MASKED), moves the running max m_run (log2 units) and the lane's part of
+// the row sums l_run, gives the accumulators' rescale factors in alpha, and
+// leaves the probabilities in s.
+template <bool MASKED, int NJ>
+__device__ __forceinline__ void tile_softmax(float (&s)[NJ][4], float (&m_run)[2],
+                                             float (&l_run)[2], float (&alpha)[2],
+                                             int kt, int t, int r0, int r1, int sk,
+                                             int causal, int has_window,
+                                             int window) {
+  float mx[2] = {kNegInf, kNegInf};
+  uint32_t ok = 0xffffffffu;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (MASKED) {
+        const bool vis = visible(kt + 8 * j + 2 * t + (e & 1), e < 2 ? r0 : r1,
+                                 sk, causal, has_window, window);
+        ok &= ~((uint32_t)!vis << (4 * j + e));
+        s[j][e] = vis ? s[j][e] : kNegInf;
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = fmaxf(m_run[i], quad_max(mx[i]));
+    alpha[i] = exp2f(m_run[i] - m_new);
+    m_run[i] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // zero masked probabilities explicitly: a fully masked tile must add
+      // 0, not exp(NEG_INF - NEG_INF) = 1
+      const float p = (!MASKED || ((ok >> (4 * j + e)) & 1u))
+                          ? exp2f(s[j][e] - m_run[e >> 1]) : 0.f;
+      s[j][e] = p;
+      rs[e >> 1] += p;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l_run[i] = alpha[i] * l_run[i] + rs[i];
+}
+
 // ------------------------------------------- f32, D = 64: mma.sync tiles
 
 constexpr int M64_BQ = 64, M64_BK = 64, M64_NT = 128, M64_STAGES = 2;
@@ -431,53 +498,16 @@ flash_mma64_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
 
-    // online softmax; s[j][e] sits at row (e < 2 ? r0 : r1), key
-    // kt + 8j + 2t + (e & 1).  A tile inside Sk with no causal or window
-    // band takes the unmasked instance (every tile of the MMDiT path but
-    // its last).
+    // online softmax.  A tile inside Sk with no causal or window band
+    // takes the unmasked instance (every tile of the MMDiT path but its
+    // last).
     float alpha[2];
-    auto softmax = [&](auto masked) {
-      constexpr bool MASKED = decltype(masked)::value;
-      float mx[2] = {kNegInf, kNegInf};
-      uint32_t ok = 0xffffffffu;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (MASKED) {
-            const bool vis = visible(kt + 8 * j + 2 * t + (e & 1),
-                                     e < 2 ? r0 : r1, sk, causal, has_window,
-                                     window);
-            ok &= ~((uint32_t)!vis << (4 * j + e));
-            s[j][e] = vis ? s[j][e] : kNegInf;
-          }
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-        }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float m_new = fmaxf(m_run[i], quad_max(mx[i]));
-        alpha[i] = exp2f(m_run[i] - m_new);
-        m_run[i] = m_new;
-      }
-      float rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          // zero masked probabilities explicitly: a fully masked tile must
-          // add 0, not exp(NEG_INF - NEG_INF) = 1
-          const float p = (!MASKED || ((ok >> (4 * j + e)) & 1u))
-                              ? exp2f(s[j][e] - m_run[e >> 1]) : 0.f;
-          s[j][e] = p;
-          rs[e >> 1] += p;
-        }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) l_run[i] = alpha[i] * l_run[i] + rs[i];
-    };
     if (kt + BK <= sk && !causal && !has_window)
-      softmax(std::false_type{});
+      tile_softmax<false>(s, m_run, l_run, alpha, kt, t, r0, r1, sk, causal,
+                          has_window, window);
     else
-      softmax(std::true_type{});
+      tile_softmax<true>(s, m_run, l_run, alpha, kt, t, r0, r1, sk, causal,
+                         has_window, window);
 
     // pv = P v over this tile: k step j covers keys kt+8j..; P's A fragment
     // is s[j] itself (k = t <-> key 2t, k = t+4 <-> key 2t+1).  The tensor
@@ -518,6 +548,189 @@ flash_mma64_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (lse != nullptr && t == 0)   // the backward's row log-sum-exp
       lse[(size_t)bh * sq + row] =
           l == 0.f ? CUDART_INF_F : (m_run[i] + log2f(l)) * kLn2;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(ob + (size_t)row * D + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+  }
+}
+
+// ------------------------------------------ f32, D = 128: mma.sync tiles
+
+// BK keys a K/V tile and NW warps (16 query rows each) a block: chosen by
+// measurement, see the header note.  q lives in shared memory (pre-scaled,
+// split on each read): its split fragments would take 128 registers.
+constexpr int M128_BK = 64, M128_NW = 8;
+constexpr int M128_STAGES = 2;
+constexpr int M128_LDQ = 128 + 8;   // float2 loads at (row g, dim 2t): 8g + 2t
+constexpr int M128_LDK = 128 + 8;   // float2 loads at (key g, dim 2t): 8g + 2t
+constexpr int M128_LDV = 128 + 4;   // loads at (key 2t, dim g): 8t + g
+
+template <int BK, int NW>
+constexpr int m128_smem() {
+  return (16 * NW * M128_LDQ + M128_STAGES * BK * (M128_LDK + M128_LDV)) *
+         (int)sizeof(float);
+}
+
+template <int BK, int NW>
+__global__ void __launch_bounds__(32 * NW)
+flash_mma128_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o,
+                    int sq, int sk, float scale_log2, int causal,
+                    int has_window, int window) {
+  constexpr int D = 128, BQ = 16 * NW, NT = 32 * NW, NJ = BK / 8;
+  constexpr int STAGES = M128_STAGES, LDQ = M128_LDQ, LDK = M128_LDK;
+  constexpr int LDV = M128_LDV;
+  static_assert(BK % 8 == 0 && NJ <= 8, "P v sums at most 8 k steps a chain");
+  static_assert((BK * D / 4) % NT == 0 && (BQ * D / 4) % NT == 0, "loads");
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);   // [BQ][LDQ], pre-scaled
+  float* sK = sQ + BQ * LDQ;                     // [STAGES][BK][LDK]
+  float* sV = sK + STAGES * BK * LDK;            // [STAGES][BK][LDV]
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float* kb = k + (size_t)bh * sk * D;
+  const float* vb = v + (size_t)bh * sk * D;
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;   // this lane's two rows
+
+  int k_begin = 0, k_end = sk;
+  if (causal) k_end = min(sk, q0 + BQ);
+  if (has_window) k_begin = max(0, q0 - window + 1) / BK * BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+
+  auto load_tile = [&](int tile) {
+    const int kt = k_begin + tile * BK, stage = tile % STAGES;
+    float* dK = sK + stage * BK * LDK;
+    float* dV = sV + stage * BK * LDV;
+#pragma unroll
+    for (int i = 0; i < BK * D / 4 / NT; ++i) {   // 16-byte chunks
+      const int c = tid + i * NT, row = c / (D / 4), col = (c % (D / 4)) * 4;
+      const bool ok = kt + row < sk;              // padding guard: zero rows
+      const size_t off = (size_t)(ok ? kt + row : 0) * D + col;
+      cp_async16(dK + row * LDK + col, kb + off, ok);
+      cp_async16(dV + row * LDV + col, vb + off, ok);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) load_tile(s);
+    cp_async_commit();
+  }
+
+  // q, pre-scaled by scale*log2(e), into shared memory while K/V load; the
+  // first tile's barrier makes it visible
+  {
+    const float* qb = q + (size_t)bh * sq * D;
+#pragma unroll
+    for (int i = 0; i < BQ * D / 4 / NT; ++i) {
+      const int c = tid + i * NT, row = c / (D / 4), col = (c % (D / 4)) * 4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + row < sq)
+        x = *reinterpret_cast<const float4*>(qb + (size_t)(q0 + row) * D + col);
+      x.x *= scale_log2; x.y *= scale_log2; x.z *= scale_log2; x.w *= scale_log2;
+      *reinterpret_cast<float4*>(sQ + row * LDQ + col) = x;
+    }
+  }
+  const float* qw = sQ + warp * 16 * LDQ;   // this warp's 16 rows
+
+  float acc[D / 8][4];   // output: n-tile n covers dims 8n..8n+7
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf};   // rows r0, r1 (log2 units)
+  float l_run[2] = {0.f, 0.f};           // this lane's part of the row sums
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + STAGES - 1 < n_tiles) load_tile(it + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    const float* cK = sK + (it % STAGES) * BK * LDK;
+    const float* cV = sV + (it % STAGES) * BK * LDV;
+    const int kt = k_begin + it * BK;
+
+    // s = q k^T: n-tile j covers keys kt+8j..kt+8j+7.  D's two 64-wide
+    // halves are each a chain of 8 mma k steps into fresh registers, joined
+    // with a rounded f32 add (the tensor cores truncate as they accumulate).
+    // Step kk of half h covers dims 64h+8kk..: k = t <-> dim 64h+8kk+2t,
+    // k = t+4 <-> dim 64h+8kk+2t+1, for q and K alike.
+    float s[NJ][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float st[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const int d0 = 64 * h + 8 * kk + 2 * t;
+        uint32_t ah[4], al[4];
+        split_a(*reinterpret_cast<const float2*>(qw + g * LDQ + d0),
+                *reinterpret_cast<const float2*>(qw + (g + 8) * LDQ + d0), ah, al);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float2 kv =
+              *reinterpret_cast<const float2*>(cK + (8 * j + g) * LDK + d0);
+          uint32_t bh_[2], bl_[2];
+          split_b(kv.x, kv.y, bh_, bl_);
+          mma_3xtf32(st[j], ah, al, bh_, bl_);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (h == 0) s[j][e] = st[j][e];
+          else s[j][e] += st[j][e];
+        }
+    }
+
+    // online softmax, as in flash_mma64_kernel
+    float alpha[2];
+    if (kt + BK <= sk && !causal && !has_window)
+      tile_softmax<false>(s, m_run, l_run, alpha, kt, t, r0, r1, sk, causal,
+                          has_window, window);
+    else
+      tile_softmax<true>(s, m_run, l_run, alpha, kt, t, r0, r1, sk, causal,
+                         has_window, window);
+
+    // pv = P v over this tile, one output n-tile at a time: P is split once
+    // (its A fragments are s[j] itself), each n-tile sums its NJ k steps
+    // into fresh registers and joins the running output with a rounded
+    // f32 FMA.  That order holds 4 accumulators instead of D / 2.
+    uint32_t ph[NJ][4], pl[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      split_a(make_float2(s[j][0], s[j][1]), make_float2(s[j][2], s[j][3]),
+              ph[j], pl[j]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      float pv[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float* v0 = cV + (8 * j + 2 * t) * LDV + 8 * n + g;
+        uint32_t bh_[2], bl_[2];
+        split_b(v0[0], v0[LDV], bh_, bl_);
+        mma_3xtf32(pv, ph[j], pl[j], bh_, bl_);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], pv[e]);
+    }
+    __syncthreads();   // this stage's reads are done before it is refilled
+  }
+  cp_async_wait<0>();
+
+  float* ob = o + (size_t)bh * sq * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = i ? r1 : r0;
+    const float l = quad_sum(l_run[i]);
+    const float inv = 1.f / (l == 0.f ? 1.f : l);   // fully masked rows
+    if (row >= sq) continue;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<float2*>(ob + (size_t)row * D + 8 * n + 2 * t) =
@@ -786,6 +999,21 @@ int launch_mma64(const float* q, const float* k, const float* v, float* o,
   return (int)cudaGetLastError();
 }
 
+template <int BK, int NW>
+int launch_mma128(const float* q, const float* k, const float* v, float* o,
+                  int bh, int sq, int sk, float scale, int causal,
+                  int has_window, int window, cudaStream_t stream) {
+  constexpr int smem = m128_smem<BK, NW>();
+  auto kernel = flash_mma128_kernel<BK, NW>;
+  static unsigned long long done = 0;
+  cudaError_t err = allow_smem((const void*)kernel, smem, done);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sq + 16 * NW - 1) / (16 * NW), bh);
+  kernel<<<grid, 32 * NW, smem, stream>>>(
+      q, k, v, o, sq, sk, scale * kLog2e, causal, has_window, window);
+  return (int)cudaGetLastError();
+}
+
 int launch_partials(const float* q, const float* k, const float* v,
                     float* scratch, int bh, int sq, int sk, float scale,
                     int causal, int has_window, int window, cudaStream_t stream) {
@@ -836,6 +1064,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (d == 64)
       return launch<T, 64, 64, 64, 128, 16>(q, k, v, o, lse, bh, sq, sk, scale, causal, has_window, window, st);
+    if (d == 128)
+      return launch<T, 128, 64, 64, 128, 16>(q, k, v, o, lse, bh, sq, sk, scale, causal, has_window, window, st);
     if (d == 1024)
       return launch<T, 1024, 16, 16, 256, 16>(q, k, v, o, lse, bh, sq, sk, scale, causal, has_window, window, st);
   }
@@ -855,7 +1085,7 @@ extern "C" long long flash_attention_scratch_floats(int bh, int sq, int sk,
 // q, k, v, o: contiguous [bh, sq|sk, d] device arrays of one dtype
 // (0 = float32, 1 = bfloat16), 16-byte aligned; scratch: at least
 // flash_attention_scratch_floats(...) floats.  lse: null, or (float32
-// except at D = 1024) a [bh, sq] float32 array that receives each row's
+// at D <= 64) a [bh, sq] float32 array that receives each row's
 // log-sum-exp of the scaled, masked scores (+inf for a row that sees no
 // key), which the backward needs; o's bits do not depend on it.  Launches
 // on `stream` and returns the CUDA error of the launches (0 on success), or
@@ -871,7 +1101,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     return launch_mma64(static_cast<const float*>(q), static_cast<const float*>(k),
                         static_cast<const float*>(v), static_cast<float*>(o),
                         lse_f, bh, sq, sk, scale, causal, has_window, window, st);
-  if (lse != nullptr && (dtype != 0 || d == SKV_D)) return -1;
+  if (lse != nullptr && (dtype != 0 || d == 128 || d == SKV_D)) return -1;
+  if (dtype == 0 && d == 128)
+    return launch_mma128<M128_BK, M128_NW>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), bh, sq, sk,
+        scale, causal, has_window, window, st);
   if (dtype == 0 && d == SKV_D) {
     const int err = launch_partials(
         static_cast<const float*>(q), static_cast<const float*>(k),

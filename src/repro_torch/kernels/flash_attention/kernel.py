@@ -6,10 +6,11 @@ Replaces the Pallas TPU kernel ``flash_attention`` / ``_attn_kernel``
 ``csrc/flash_attention.cu``; its header note gives the bound at the main
 path's shape and what the design does about it.  It is compiled with
 ``nvcc`` for ``sm_90a`` at first use (:mod:`repro_torch.kernels.build`) and
-bound with ``ctypes``.  The source routes by shape: f32 at head dim 64 to
-split-precision TF32 tensor-core tiles, f32 at head dim 1024 to a split-KV
-grid and a merge kernel (the wrapper allocates their scratch), the rest to
-a CUDA-core template.
+bound with ``ctypes``.  The source routes by shape: f32 at head dims 64
+and 128 to split-precision TF32 tensor-core tiles, f32 at head dim 1024 to
+a split-KV grid and a merge kernel (the wrapper allocates their scratch),
+the rest (head dims 8, 16 and 32, and bf16 at every head dim) to a
+CUDA-core template.  Head dims: ``SUPPORTED_HEAD_DIMS``.
 
 :func:`flash_attention` takes the plain version (:func:`attention_ref`)
 only for tensors on the CPU.  For CUDA tensors it launches the kernels or
@@ -49,7 +50,7 @@ from repro_torch.kernels.flash_attention.ref import (
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
-SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 1024)
+SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128, 1024)
 BWD_HEAD_DIMS = (8, 16, 32, 64)  # the backward: f32 at these head dims
 SPLIT_KV_HEAD_DIM = 1024        # f32 at this head dim takes the split-KV route
 SPLIT_KV_CHUNK = 64             # keys per split-KV block
@@ -99,7 +100,7 @@ def _bwd_kernel() -> Any:
 
 def check_trainable(q: torch.Tensor) -> None:
     """Raise unless the backward kernel takes ``q``'s dtype and head dim:
-    f32 at head dims 8-64.  The D = 1024 split-KV route and bf16 have no
+    f32 at head dims 8-64.  Head dims 128 and 1024 and bf16 have no
     backward kernel; no training path reaches them."""
     if q.device.type == "cuda" and (q.dtype != torch.float32
                                     or q.shape[-1] not in BWD_HEAD_DIMS):

@@ -12,10 +12,11 @@ row's log-sum-exp as well and whose backward is the backward kernel
 (:func:`~.kernel.flash_attention_bwd`); on the CPU both are the plain
 versions.  It is the JAX package's ``custom_vjp`` around its Pallas
 forward, whose backward differentiates the plain attention.  On the card
-it launches its kernels or raises (bf16 and head dim 1024 have no backward
-kernel): it never differentiates the plain version there.  A call that
-needs no gradient, every serving call, takes the forward alone and writes
-no log-sum-exp.  Meta tensors (the dry run) take the kernels' meta routes.
+it launches its kernels or raises (bf16 and head dims 128 and 1024 have
+no backward kernel): it never differentiates the plain version there.  A
+call that needs no gradient, every serving call, takes the forward alone
+and writes no log-sum-exp.  Meta tensors (the dry run) take the kernels'
+meta routes.
 """
 
 from __future__ import annotations

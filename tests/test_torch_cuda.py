@@ -36,6 +36,17 @@ GRID = [
     ((2, 333, 333, 1024), True, 70),
     ((1, 200, 150, 1024), True, 1),
     ((1, 16, 17000, 1024), False, None),  # the merge takes 266 chunks
+    # head dim 128 (Flux's heads): f32 on the tensor-core tiles, bf16 on
+    # the CUDA-core template; Flux's joint attention at published width,
+    # full and ragged tiles, causal and window bands, rows with no key,
+    # rectangular Sq < Sk and Sq > Sk
+    ((24, 4608, 4608, 128), False, None),
+    ((4, 512, 512, 128), False, None),
+    ((3, 500, 500, 128), True, None),
+    ((2, 300, 300, 128), True, 37),
+    ((1, 200, 150, 128), True, 1),
+    ((3, 100, 333, 128), False, None),
+    ((2, 333, 100, 128), False, None),
 ]
 
 

@@ -31,6 +31,10 @@ GRID = [
     ((1, 200, 200, 16), True, 64, 64, 64),      # ragged + sliding window
     ((1, 64, 256, 64), False, None, 32, 64),    # cross-attention shape
     ((2, 100, 300, 8), False, 128, 32, 128),
+    # head dim 128 (Flux's heads): ragged with causal and window bands,
+    # and a rectangular Sq != Sk shape
+    ((1, 200, 200, 128), True, 48, 64, 64),
+    ((2, 72, 200, 128), False, None, 32, 64),
 ]
 DTYPES = {"f32": (np.float32, jnp.float32, torch.float32, 2e-5),
           "bf16": (np.float32, jnp.bfloat16, torch.bfloat16, 3e-2)}
@@ -189,7 +193,7 @@ def test_non_cpu_tensor_launches_or_raises_never_falls_back(monkeypatch):
 
 
 @pytest.mark.parametrize("d,ok", [(64, True), (1024, True), (48, False),
-                                  (128, False)])
+                                  (128, True), (96, False), (256, False)])
 def test_kernel_checks_head_dim(monkeypatch, d, ok):
     """The wrapper raises on a head dim the kernel has no tile shape for."""
     x = torch.empty(1, 4, d, device="meta")
@@ -204,9 +208,11 @@ def test_kernel_checks_head_dim(monkeypatch, d, ok):
 
 
 # ------------------------------------------- the CUDA kernel's arithmetic
-# The kernel cannot run here.  What it computes at head dims 64 and 1024 is
-# emulated in plain torch: 3xTF32 products (split-precision TF32 on the
-# tensor cores, f32 sums) and the split-KV partials and their merge.
+# The kernel cannot run here.  What it computes at head dims 64, 128 and
+# 1024 is emulated in plain torch: 3xTF32 products (split-precision TF32 on
+# the tensor cores, f32 sums; at head dim 128 q k^T sums D in two chains of
+# 8 k steps joined by an f32 add, as the kernel does) and the split-KV
+# partials and their merge.
 
 def _tf32(x: torch.Tensor, rounding: str) -> torch.Tensor:
     """f32 reduced to TF32 (10 mantissa bits): cut (the low 13 bits set to
@@ -229,32 +235,43 @@ def _tf32_product(a: torch.Tensor, b: torch.Tensor, passes: int, rounding):
     return out
 
 
-def _tf32_attention(q, k, v, passes, rounding):
-    s = _tf32_product(q / np.sqrt(q.shape[-1]), k.transpose(-1, -2), passes,
-                      rounding)
+def _tf32_attention(q, k, v, passes, rounding, chain=None):
+    """3xTF32 (or one-pass) attention; with ``chain``, q k^T sums D in
+    chains of that many dims, each joined to the running sum by an f32
+    add."""
+    q = q / np.sqrt(q.shape[-1])
+    chain = chain or q.shape[-1]
+    s = sum(_tf32_product(q[..., c:c + chain],
+                          k[..., c:c + chain].transpose(-1, -2), passes,
+                          rounding)
+            for c in range(0, q.shape[-1], chain))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     return (_tf32_product(p, v, passes, rounding)
             / p.sum(dim=-1, keepdim=True))
 
 
 @pytest.mark.parametrize("rounding", ["cut", "rna"])
-@pytest.mark.parametrize("shape", [(1, 4429, 4429, 64), (1, 333, 333, 1024)],
-                         ids=["mmdit", "text"])
-def test_split_tf32_products_hold_the_f32_gate(shape, rounding):
+@pytest.mark.parametrize("shape,chain", [
+    ((1, 4429, 4429, 64), None),
+    ((1, 4608, 4608, 128), 64),     # Flux's joint attention, D in 2 chains
+    ((1, 333, 333, 1024), None),
+], ids=["mmdit", "flux", "text"])
+def test_split_tf32_products_hold_the_f32_gate(shape, chain, rounding):
     """3xTF32 attention lies within the f32 gate (2e-5) of the float64
     reference at the path's sequence lengths, and one TF32 pass misses it:
     the gate tells the two apart, so the kernel needs the three passes.
     The kernel cuts its operands to TF32; rounding them to nearest holds
-    the gate too."""
+    the gate too.  At head dim 128 the kernel sums q k^T's two 64-wide
+    halves of D in chains of 8 mma k steps and adds them in f32."""
     bh, sq, sk, d = shape
     r = np.random.default_rng(3)
     q, k, v = (torch.from_numpy(r.standard_normal((bh, n, d)).astype(np.float32))
                for n in (sq, sk, sk))
     qd, kd, vd = q.double(), k.double(), v.double()
     want = torch.softmax(qd @ kd.transpose(-1, -2) / np.sqrt(d), dim=-1) @ vd
-    err3 = float((_tf32_attention(q, k, v, 3, rounding).double()
+    err3 = float((_tf32_attention(q, k, v, 3, rounding, chain).double()
                   - want).abs().max())
-    err1 = float((_tf32_attention(q, k, v, 1, rounding).double()
+    err1 = float((_tf32_attention(q, k, v, 1, rounding, chain).double()
                   - want).abs().max())
     assert err3 <= 2e-5, err3
     assert err1 > 2e-5, err1

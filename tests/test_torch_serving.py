@@ -9,6 +9,8 @@ Also: fused ``DenoiseSegment`` execution equals the unfused per-step
 chain bit for bit inside the port (mirrors ``tests/test_segments.py``),
 and the backend refuses to run on a card that is not there."""
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -43,19 +45,20 @@ def _images(system, reqs):
         r.ref_key(r.graph.outputs["image"])) for r in reqs]
 
 
-def _serve_jax(family_name, steps):
+def _serve_jax(family_name, steps, jms=None):
     system = jcore.ServingSystem(n_executors=2, backend=jcore.LocalBackend())
-    system.register(jdiff.make_basic_workflow(family_name))
+    system.register(jdiff.make_basic_workflow(family_name, jms))
     reqs = [system.submit(f"{family_name}:basic", inputs=dict(inp),
                           arrival=0.0, steps=steps) for inp in REQUESTS]
     system.run()
     return [np.asarray(x) for x in _images(system, reqs)]
 
 
-def _port_modelset_from_jax(family_name):
-    """A port ModelSet carrying the JAX package's weights and latents."""
-    jms = jdiff.ModelSet(jdiff.FAMILIES[family_name])
-    ms = tdiff.ModelSet(tdiff.FAMILIES[family_name])
+def _port_modelset_from_jax(family_name, jms=None, family=None):
+    """A port ModelSet carrying the JAX package's weights and latents
+    (those of ``jms`` and the port's ``family`` where given)."""
+    jms = jms or jdiff.ModelSet(jdiff.FAMILIES[family_name])
+    ms = tdiff.ModelSet(family or tdiff.FAMILIES[family_name])
     for name in ("text_enc", "backbone", "vae_dec"):
         params = getattr(jms, name).load()["params"]
         getattr(ms, name).weights = from_numpy(jax.tree.map(np.asarray, params))
@@ -94,6 +97,40 @@ def test_served_image_matches_jax(family_name):
     # the denoise chain ran as fused segments
     assert any(m.startswith("segment:") for m, _ in
                system.coordinator.backend.forward_log)
+
+
+def test_head_dim_128_flux_image_matches_jax(monkeypatch):
+    """flux-schnell at a narrow DiT with Flux's published head dim (2 heads
+    of 128, d 256, 2 layers), 4 steps: the served image through both
+    packages on the same weights within 1e-4 relative.  The JAX side runs
+    its Pallas kernel in interpret mode at head dim 128; the port's joint
+    attention takes the flash route (its plain version on the CPU) at
+    head dim 128."""
+    narrow = dict(d_model=256, n_layers=2, n_heads=2, d_ff=1024)
+    jms = jdiff.ModelSet(dataclasses.replace(
+        jdiff.FLUX_SCHNELL,
+        toy=dataclasses.replace(jdiff.FLUX_SCHNELL.toy, **narrow)))
+    family = dataclasses.replace(
+        tdiff.FLUX_SCHNELL,
+        toy=dataclasses.replace(tdiff.FLUX_SCHNELL.toy, **narrow))
+    assert family.toy.head_dim == 128
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    head_dims = []
+    real_mha = fa_ops.mha
+
+    def spy(q, k, v, **kw):
+        head_dims.append(q.shape[-1])
+        return real_mha(q, k, v, **kw)
+
+    monkeypatch.setattr(fa_ops, "mha", spy)
+    want = _serve_jax("flux-schnell", steps=4, jms=jms)
+    got, _ = _serve_port(
+        _port_modelset_from_jax("flux-schnell", jms=jms, family=family),
+        steps=4)
+    assert 128 in head_dims
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        assert rel_err(g.numpy(), w) < 1e-4
 
 
 @pytest.mark.parametrize("family_name", ["sd3", "flux-schnell"])
