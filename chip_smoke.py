@@ -10,17 +10,20 @@ Phases (any failed check raises, and the script exits non-zero):
    started together, into ``build/``), with ptxas's registers and spills;
    every instantiation of flash attention's forward and of the int8
    route's two kernels is listed by name; the int8 kernels and flash
-   attention's head-dim-128 tiles must spill nothing.
+   attention's head-dim-128 kernels (``D128_KERNELS``: the split-plane
+   pre-pass and the wgmma tiles) must spill nothing.
 2. Each kernel against its plain PyTorch version on the card.  Flash
    attention: the JAX package's kernel grid (f32 atol 2e-5, bf16 3e-2),
    causal and window bands at head dims 64, 128 (f32 and bf16) and 1024
    (wholly masked tiles and chunks, rows with no key, rectangular shapes
    at 128), 17000 keys at head dim 1024 (a merge of 266 chunks), and the
    full-width path shapes at f32, (48 | 96 | 144, 4429, 64), (4 | 8, 333,
-   1024) and phase 4f's (24, 4608, 128), (76, 4429, 64) and (4, 512,
-   1024) (atol 2e-5: the
+   1024), phase 4f's (24, 4608, 128), (76, 4429, 64) and (4, 512,
+   1024), and (4, 512, 128) (atol 2e-5: the
    kernel's 3xTF32 products keep about 20 bits, the plain version's f32
-   FMAs 24; TF32 is off in the plain version).  The split-KV route's two
+   FMAs 24; TF32 is off in the plain version); every f32 head-dim-128
+   shape gives the same bits on a second call, and that route's pre-pass
+   is bit-identical to ``split_planes_ref`` (a ragged Sk and Flux's).  The split-KV route's two
    kernels on their own: the partials against ``attention_partial_ref``
    and the merge against ``merge_partials_ref`` (f32 2e-5).  The LoRA
    kernels: the JAX package's grids (``tests/test_kernels.py``, f32
@@ -406,12 +409,14 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12,
               "tf32": 495e12}
+# the f32 D = 128 route's two kernels: the split-plane pre-pass and the
+# wgmma tiles
+D128_KERNELS = ("flash_split128_kernel", "flash_wgmma128_kernel")
 # every CUDA kernel the flash-attention wrapper launches, by route: the
-# CUDA-core template, the D = 64 and D = 128 tensor-core tiles, the D = 1024
-# split-KV grid and its merge
-FLASH_KERNELS = ("flash_fwd_kernel", "flash_mma64_kernel",
-                 "flash_mma128_kernel", "flash_splitkv_kernel",
-                 "flash_merge_kernel")
+# CUDA-core template, the D = 64 tensor-core tiles, the D = 128 route, the
+# D = 1024 split-KV grid and its merge
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_mma64_kernel", *D128_KERNELS,
+                 "flash_splitkv_kernel", "flash_merge_kernel")
 # every CUDA kernel the LoRA wrappers launch: the x @ A pre-pass and the GEMM
 LORA_KERNELS = ("lora_xa_kernel", "lora_matmul_kernel")
 # every CUDA kernel the quant_matmul wrapper launches: the GEMM and, for a
@@ -430,7 +435,9 @@ KERNEL_VS_PLAIN_REL = 1e-3
 # rectangular shapes and rows with no key; f32 and bf16
 D128_BANDS = (((3, 500, 500, 128), True, None), ((2, 300, 300, 128), True, 37),
               ((1, 200, 150, 128), True, 1), ((3, 100, 333, 128), False, None),
-              ((2, 333, 100, 128), False, None))
+              ((2, 333, 100, 128), False, None),
+              # query blocks past Sk + window see no key tile at all
+              ((1, 400, 150, 128), True, 1))
 # phase 4f: Table 2's other families at published width, one basic request
 # each at STEPS steps (flux-schnell's published count is 4): the family and
 # the REAL config it takes (flux-schnell shares flux-dev's backbone)
@@ -684,7 +691,10 @@ def attention_inputs(torch, shape, dtype, seed=0):
             for n in (sq, sk, sk)]
 
 
-def check_attention(torch, fa, shape, causal, window, dtype, atol) -> float:
+def check_attention(torch, fa, shape, causal, window, dtype, atol,
+                    same_bits=False) -> float:
+    """max |error| of the kernel against the plain version (raises above
+    ``atol``); with ``same_bits``, a second call must give the same bits."""
     q, k, v = attention_inputs(torch, shape, dtype)
     out = fa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -693,7 +703,23 @@ def check_attention(torch, fa, shape, causal, window, dtype, atol) -> float:
     if not err <= atol:
         raise AssertionError(f"flash_attention {shape} causal={causal} "
                              f"window={window} {dtype}: max |err| {err} > {atol}")
+    if same_bits and not torch.equal(
+            out, fa.flash_attention(q, k, v, causal=causal, window=window)):
+        raise AssertionError(f"flash_attention {shape} causal={causal} "
+                             f"window={window} {dtype}: a second call gave "
+                             f"other bits")
     return err
+
+
+def check_split_planes(torch, fa, fref, shape) -> None:
+    """The f32 D = 128 route's pre-pass on its own, bit for bit against
+    ``split_planes_ref`` (its hi and lo parts are exact bit operations)."""
+    _, k, v = attention_inputs(torch, shape, torch.float32, seed=3)
+    got = fa.split_planes(k, v)
+    torch.cuda.synchronize()
+    if not torch.equal(got, fref.split_planes_ref(k, v, tile=fa.D128_TILE)):
+        raise AssertionError(f"split planes {shape}: not bit-identical to "
+                             f"the plain version")
 
 
 def time_attention(torch, fa, shape, dtype, reps=10) -> dict:
@@ -702,7 +728,7 @@ def time_attention(torch, fa, shape, dtype, reps=10) -> dict:
     q, k, v = attention_inputs(torch, shape, dtype, seed=1)
     dname = str(dtype).replace("torch.", "")
     bound_ms, bound_by, _ = attention_bound_ms(*shape, dname)
-    return {
+    out = {
         "shape": "BH=%d,Sq=%d,Sk=%d,D=%d,%s" % (*shape, dname),
         "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v), reps),
         "plain_ms": cuda_ms(torch, lambda: fa.attention_ref(q, k, v), reps),
@@ -711,6 +737,10 @@ def time_attention(torch, fa, shape, dtype, reps=10) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
     }
+    if shape[3] == 128 and dtype == torch.float32:
+        # the D = 128 route's pre-pass alone (part of ``ms``)
+        out["split_ms"] = cuda_ms(torch, lambda: fa.split_planes(k, v), reps)
+    return out
 
 
 def log_attention_time(timing, shape, card) -> None:
@@ -3188,7 +3218,7 @@ def main() -> None:
             log(f"[build] {source.name}: {line}")
     # every instantiation of flash attention's forward and of the int8
     # route's kernels, by name; the int8 kernels and flash attention's
-    # head-dim-128 tiles must spill nothing
+    # head-dim-128 kernels must spill nothing
     for source, (lib, _) in zip(sources, built):
         if source not in (qk.SOURCE, qk.ROWS_SOURCE, fa.SOURCE):
             continue
@@ -3197,7 +3227,12 @@ def main() -> None:
             log(f"[build] {source.name}: {name}: {regs} registers, {stores} "
                 f"bytes spill stores, {loads} bytes spill loads")
         if source == fa.SOURCE:
-            report = [r for r in report if "flash_mma128_kernel" in r[0]]
+            report = [r for r in report
+                      if any(name in r[0] for name in D128_KERNELS)]
+            if not all(any(name in r[0] for r in report)
+                       for name in D128_KERNELS):
+                raise AssertionError(f"{source.name}: ptxas reports no "
+                                     f"{D128_KERNELS}: {report}")
         if not report or any(st or ld for _, _, st, ld in report):
             raise AssertionError(f"{source.name}: ptxas reports spills (or no "
                                  f"entry function): {report}")
@@ -3220,7 +3255,8 @@ def main() -> None:
                                   ((2, 333, 333, 1024), False, 40),
                                   ((1, 200, 150, 1024), True, 1),
                                   ((1, 16, 17000, 1024), False, None)):
-        err = check_attention(torch, fa, shape, causal, window, f32, 2e-5)
+        err = check_attention(torch, fa, shape, causal, window, f32, 2e-5,
+                              same_bits=shape[3] == 128)
         log(f"[kernel] bands {shape} causal={causal} window={window} "
             f"float32: max|err| {err:.2e} <= 2e-05")
     # head dim 128 in bf16: the CUDA-core template
@@ -3231,10 +3267,17 @@ def main() -> None:
     path_err = 0.0
     for shape in ((48, 4429, 4429, 64), (96, 4429, 4429, 64),
                   (144, 4429, 4429, 64), (4, 333, 333, 1024),
-                  (8, 333, 333, 1024), *FAMILY_SHAPES):
-        err = check_attention(torch, fa, shape, False, None, f32, 2e-5)
+                  (8, 333, 333, 1024), *FAMILY_SHAPES, (4, 512, 512, 128)):
+        err = check_attention(torch, fa, shape, False, None, f32, 2e-5,
+                              same_bits=shape[3] == 128)
         path_err = max(path_err, err)
-        log(f"[kernel] path {shape} float32: max|err| {err:.2e} <= 2e-05")
+        log(f"[kernel] path {shape} float32: max|err| {err:.2e} <= 2e-05"
+            + (", the same bits twice" if shape[3] == 128 else ""))
+    # the D = 128 route's pre-pass: a ragged Sk and Flux's shape
+    for shape in ((2, 77, 77, 128), (24, 4608, 4608, 128)):
+        check_split_planes(torch, fa, fref, shape)
+        log(f"[kernel] split planes {shape}: bit-identical to the plain "
+            f"version")
     for shape, causal, window in (((4, 333, 333, 1024), False, None),
                                   ((8, 333, 333, 1024), False, None),
                                   ((2, 333, 333, 1024), True, 70),

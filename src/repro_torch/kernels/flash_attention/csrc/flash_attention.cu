@@ -28,11 +28,12 @@
 // with 20x to spare (tests/test_torch_flash_attention.py emulates both).  So
 // every f32 operand x is split into TF32 parts hi and lo (split() below),
 // and every product is lo*hi + hi*lo + hi*hi on the tensor cores
-// (mma.sync.m16n8k8 TF32, f32 accumulators), for q k^T and for P v alike.
-// The tensor cores truncate as they accumulate, so no chain of mma sums runs
-// longer than 8 k steps: each K/V tile (and each 64-wide slice of D = 1024)
-// sums into fresh registers that join the running sums with rounded f32
-// adds.  Without that the D = 1024 error crossed the gate (2.6e-5 at BH 8).
+// (mma.sync.m16n8k8 TF32, or wgmma m64nNk8 at D = 128, f32 accumulators),
+// for q k^T and for P v alike.  The tensor cores truncate as they
+// accumulate, so no chain of sums runs longer than 8 k steps: each K/V
+// tile (and each 64-wide slice of D = 1024) sums into fresh registers that
+// join the running sums with rounded f32 adds.  Without that the D = 1024
+// error crossed the gate (2.6e-5 at BH 8).
 //
 // Design, one route per shape (the wrapper asks flash_attention_scratch_floats
 // for the scratch a route needs):
@@ -50,22 +51,45 @@
 //   fragments load as float2.  Row max and sum are quad shuffles.  Tiles
 //   wholly outside the causal or window band are skipped, and tiles with
 //   nothing to mask skip the mask arithmetic.
-// * f32, D = 128 (Flux's heads): flash_mma128_kernel, the D = 64 design with
-//   three changes.  (1) Registers: q's split fragments for the whole sweep
-//   would take 128 registers and the output accumulator 64, so q sits in
-//   shared memory (pre-scaled, 136-float rows) and is split on each read;
-//   P v walks the output one 8-wide n-tile at a time over P split once, so
-//   it holds 4 fresh accumulators, not 64.  (2) Chains: q k^T sums each
-//   64-wide half of D as a chain of 8 mma k steps into fresh registers and
-//   joins the halves with a rounded f32 add; P v over a 64-key tile is 8 k
-//   steps.  (3) Tiles, by measurement at (24, 4608, 128) on an H100
-//   (tools/flash_fwd128_bench.py): 8 warps (128 query rows) a block over
-//   64-key tiles, 207 KB of shared memory (q 70 KB, a 2-stage K/V ring 137
-//   KB) and 253 registers, one block an SM, took 4.48 ms; 4 warps over
-//   64-key tiles (255 registers, one block) 6.36 ms; 4 warps over 32-key
-//   tiles (168 registers, two blocks) 6.35 ms; 8 warps over 32-key tiles
-//   5.60 ms.  Eight warps share each K/V tile, which halves the tile loads
-//   a query row costs.  No variant spills.
+// * f32, D = 128 (Flux's heads): a pre-pass, then a warp-specialised
+//   wgmma kernel.  What bounds it: the 3xTF32 operations (1.58 ms at
+//   (24, 4608, 128)); of bytes, each block reads its head's split planes
+//   once, 8.1 GB from L2 a call at 128 query rows a block.  The route's
+//   earlier mma.sync version reached 35 % of that bound: every warp split
+//   every K and V element it read, and 253 registers left one 8-warp block
+//   an SM.
+//   (1) flash_split128_kernel splits K and V once a call into TF32 hi and
+//   lo planes, V transposed with each 8-key group's keys in the order 0 2 4
+//   6 1 3 5 7 (the D = 64 trick: the score accumulator is P's A fragment),
+//   laid out tile by tile as the main kernel's shared memory holds them
+//   (128-byte swizzled K-major atoms, the layout wgmma's descriptors read),
+//   keys past Sk zero: 4*BH*ceil(Sk/32)*32*128 floats of scratch (226 MB at
+//   Flux's shape).  (2) flash_wgmma128_kernel: one block a (bh, 128 query
+//   rows), a producer warpgroup that copies each 32-key tile's K and V^T
+//   halves with one TMA bulk copy each into rings of 3 and 2 stages on
+//   mbarriers (so the padding guard is the pre-pass's zeros), and two
+//   consumer warpgroups of 64 rows (setmaxnreg: 24 and 240 registers).
+//   Each consumer keeps q hi in registers as wgmma's A fragments and q lo in
+//   shared memory; q k^T is two chains of 8 k steps (D's halves) of three
+//   m64n32k8 products into fresh accumulators joined by an f32 add, P v a
+//   fresh m64n128 chain of 4 k steps of three products a tile, joined to
+//   the output by an f32 FMA.  Chains: tests/test_torch_flash_attention.py
+//   emulates this order with every tensor-core sum truncated: 3.0e-7 (cut)
+//   and 1.9e-7 (rna) against float64 at (1, 4608, 4608, 128), a 67x margin
+//   under the 2e-5 gate; accumulating P v into the output itself (one
+//   chain of 1728 products over 4608 keys) reads 6.5e-6, and 4.6e-5 with
+//   V + 1, over the gate.  The consumers take turns at the tensor cores
+//   (named barriers: one issues its q k^T or P v products only after the
+//   other issued its own), so that one's softmax runs beside the other's
+//   products.  Tiles and turns by measurement (tools/flash_fwd128_bench.py
+//   at (24, 4608, 128), H100 80GB HBM3, 700 W, the medians of three
+//   turns): 3 K and 2 V^T stages, m64n128 P v, turns 2.19-2.29 ms (device
+//   time 2.004 main kernel + 0.119 pre-pass, 74 % of the bound); 2 and 2
+//   stages, m64n64 halves, no turns 2.36-2.42; turns with 2 K stages
+//   2.55-2.72 (the warpgroup that lags holds its stage); the earlier
+//   mma.sync version 4.49-4.71 (4.383 device) in the same run.  What is left: the
+//   last of 6.5 waves of blocks runs 55 % full, about 6 % of the time.
+//   168 registers at launch, 225 KB of shared memory, no spill.
 // * f32, D = 1024 (the text encoder's head): a split-KV grid.  With 4 KB a
 //   row of q there is no room for a long K sweep per block, and one block per
 //   (bh, q tile) leaves most of the 132 SMs idle (84 blocks at BH 4).
@@ -555,85 +579,396 @@ flash_mma64_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------------ f32, D = 128: mma.sync tiles
+// ------------------------------------------- f32, D = 128: wgmma tiles
 
-// BK keys a K/V tile and NW warps (16 query rows each) a block: chosen by
-// measurement, see the header note.  q lives in shared memory (pre-scaled,
-// split on each read): its split fragments would take 128 registers.
-constexpr int M128_BK = 64, M128_NW = 8;
-constexpr int M128_STAGES = 2;
-constexpr int M128_LDQ = 128 + 8;   // float2 loads at (row g, dim 2t): 8g + 2t
-constexpr int M128_LDK = 128 + 8;   // float2 loads at (key g, dim 2t): 8g + 2t
-constexpr int M128_LDV = 128 + 4;   // loads at (key 2t, dim g): 8t + g
+// Hopper's warpgroup instructions, as PTX: the asynchronous TF32 products
+// (A from shared memory or registers, B from shared memory through a
+// descriptor), the mbarriers and bulk copies of the load ring, and the
+// register hand-over between the producer and the consumer warpgroups.
 
-template <int BK, int NW>
-constexpr int m128_smem() {
-  return (16 * NW * M128_LDQ + M128_STAGES * BK * (M128_LDK + M128_LDV)) *
-         (int)sizeof(float);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int BK, int NW>
-__global__ void __launch_bounds__(32 * NW)
-flash_mma128_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ o,
-                    int sq, int sk, float scale_log2, int causal,
-                    int has_window, int window) {
-  constexpr int D = 128, BQ = 16 * NW, NT = 32 * NW, NJ = BK / 8;
-  constexpr int STAGES = M128_STAGES, LDQ = M128_LDQ, LDK = M128_LDK;
-  constexpr int LDV = M128_LDV;
-  static_assert(BK % 8 == 0 && NJ <= 8, "P v sums at most 8 k steps a chain");
-  static_assert((BK * D / 4) % NT == 0 && (BQ * D / 4) % NT == 0, "loads");
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);   // [BQ][LDQ], pre-scaled
-  float* sK = sQ + BQ * LDQ;                     // [STAGES][BK][LDK]
-  float* sV = sK + STAGES * BK * LDK;            // [STAGES][BK][LDV]
+// A K-major operand in 128-byte swizzled atoms (8 rows of 128 bytes, the
+// 16-byte chunk c of row r stored at chunk c ^ (r % 8)), atoms of a column
+// stacked every 1024 bytes: start address, LBO 1 (unused when swizzled),
+// SBO 1024, layout SWIZZLE_128B.  A k step of 8 TF32 values advances the
+// start by 32 bytes within the atom's row.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3ffffu) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+// byte offset of the float at (row r, column c < 32) of a column of atoms
+__host__ __device__ constexpr int sw128(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + (c & 3) * 4;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// ties registers to the instructions around it, so that the compiler
+// neither reads an accumulator before wgmma_wait nor reuses an operand's
+// register while a product still reads it
+template <int R, int C, typename T>
+__device__ __forceinline__ void fence_regs(T (&x)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      if constexpr (std::is_same<T, float>::value)
+        asm volatile("" : "+f"(x[i][j]) :: "memory");
+      else
+        asm volatile("" : "+r"(x[i][j]) :: "memory");
+    }
+}
+
+__device__ __forceinline__ void wgmma_n32_ss(float (&d)[4][4], uint64_t a, uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n32_rs(float (&d)[4][4], const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n64_rs(float (&d)[8][4], const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n128_rs(float (&d)[16][4], const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// P v's m64nNk8 with A from registers, N = 8 * NJ (64 or 128)
+template <int NJ>
+__device__ __forceinline__ void wgmma_rs(float (&d)[NJ][4], const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  static_assert(NJ == 8 || NJ == 16, "m64n64k8 or m64n128k8");
+  if constexpr (NJ == 8) wgmma_n64_rs(d, a, b, scale_d);
+  else wgmma_n128_rs(d, a, b, scale_d);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+// returns once the barrier's phase of this parity has completed; a phase
+// that has not completed after 2^35 cycles (about 20 s, where a tile load
+// takes microseconds) traps, so a fault fails the launch instead of
+// hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 35)) __trap();
+  }
+}
+// one TMA bulk copy of `bytes` contiguous bytes, its completion counted on
+// the barrier's transaction count
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// The split planes.  flash_split128_kernel writes, for each head and each
+// tile of W128_BK keys, the 64 KB image that the main kernel's producer
+// copies into shared memory as it stands: K hi and K lo (key rows, 128
+// dims in four columns of 128-byte atoms), then V^T hi and V^T lo (128 dim
+// rows, the tile's keys along the row), each TF32 part cut as split() cuts
+// it, keys past Sk zero.  Within each 8-key group V^T holds the keys in
+// the order 0 2 4 6 1 3 5 7, so that the score accumulator of q k^T is P's
+// A fragment as it stands (k = t <-> key 2t, k = t+4 <-> key 2t+1).  Plain
+// version: ref.py split_planes_ref.
+constexpr int W128_BK = 32;                          // keys a K/V tile
+constexpr int W128_PLANE = W128_BK * 128;            // floats of one plane
+constexpr int W128_HALF = 2 * W128_PLANE * 4;        // bytes of K (or V^T) hi + lo
+constexpr int W128_TILE_FLOATS = 4 * W128_PLANE;     // floats of a tile's image
+
+__device__ __forceinline__ void split4(float4 x, float4& hi, float4& lo) {
+  uint32_t h, l;
+  split(x.x, h, l); hi.x = __uint_as_float(h); lo.x = __uint_as_float(l);
+  split(x.y, h, l); hi.y = __uint_as_float(h); lo.y = __uint_as_float(l);
+  split(x.z, h, l); hi.z = __uint_as_float(h); lo.z = __uint_as_float(l);
+  split(x.w, h, l); hi.w = __uint_as_float(h); lo.w = __uint_as_float(l);
+}
+
+__global__ void __launch_bounds__(256)
+flash_split128_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                      float* __restrict__ planes, int sk) {
+  constexpr int D = 128, BK = W128_BK, NT = 256;
+  __shared__ float sV[BK][D + 1];
+  const int tile = blockIdx.x, bh = blockIdx.y, kt = tile * BK, tid = threadIdx.x;
+  char* img = reinterpret_cast<char*>(
+      planes + ((size_t)bh * gridDim.x + tile) * W128_TILE_FLOATS);
   const float* kb = k + (size_t)bh * sk * D;
   const float* vb = v + (size_t)bh * sk * D;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;   // this lane's two rows
+  // K: 16-byte chunk c of key row r (dims 4c..4c+3) to atom column c / 8
+#pragma unroll
+  for (int i = 0; i < BK * D / 4 / NT; ++i) {
+    const int idx = tid + i * NT, r = idx / (D / 4), c = idx % (D / 4);
+    const bool ok = kt + r < sk;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+    if (ok) {
+      x = reinterpret_cast<const float4*>(kb + (size_t)(kt + r) * D)[c];
+      y = reinterpret_cast<const float4*>(vb + (size_t)(kt + r) * D)[c];
+    }
+    float4 hi, lo;
+    split4(x, hi, lo);
+    const int off = (c >> 3) * (BK * 128) + sw128(r, 4 * (c & 7));
+    *reinterpret_cast<float4*>(img + off) = hi;
+    *reinterpret_cast<float4*>(img + 4 * W128_PLANE + off) = lo;
+    sV[r][4 * c] = y.x; sV[r][4 * c + 1] = y.y;
+    sV[r][4 * c + 2] = y.z; sV[r][4 * c + 3] = y.w;
+  }
+  __syncthreads();
+  // V^T: chunk lc of dim row d holds tile slots 4lc..4lc+3, the keys
+  // key0, key0+2, key0+4, key0+6 of 8-key group lc / 2
+  char* vimg = img + W128_HALF;
+#pragma unroll
+  for (int i = 0; i < D * BK / 4 / NT; ++i) {
+    const int idx = tid + i * NT, d = idx / (BK / 4), lc = idx % (BK / 4);
+    const int key0 = 8 * (lc >> 1) + (lc & 1);
+    float4 hi, lo;
+    split4(make_float4(sV[key0][d], sV[key0 + 2][d], sV[key0 + 4][d],
+                       sV[key0 + 6][d]), hi, lo);
+    const int off = (lc >> 3) * (D * 128) + sw128(d, 4 * (lc & 7));
+    *reinterpret_cast<float4*>(vimg + off) = hi;
+    *reinterpret_cast<float4*>(vimg + 4 * W128_PLANE + off) = lo;
+  }
+}
 
+// The main kernel: one block a (bh, 128 query rows), three warpgroups.
+// Warpgroup 0 is the producer (24 registers): one thread walks the block's
+// K/V tiles and copies each tile's K half (32 KB) and V^T half (32 KB) of
+// the split planes into rings of W128_KS and W128_VS stages with one bulk
+// copy each, signalled on an mbarrier; the consumers release a stage on
+// another mbarrier (256 arrivals) once their products have read it.
+// Warpgroups 1 and 2 (240 registers) own 64 query rows each.  Each keeps
+// its q pre-scaled and split: hi as the A fragments of q k^T's 16 k steps
+// in registers (64), lo in shared memory (32 KB, swizzled as K).  Per tile:
+// S = q k^T as two chains of 8 k steps (D's halves) of three m64n32k8
+// products (q lo * K hi from shared memory, q hi * K lo and q hi * K hi
+// from registers) into fresh accumulators, joined by an f32 add; the online
+// softmax of tile_softmax on S as it lies in the accumulators; P split
+// once into its A fragments; then P v's 4 k steps of three products into
+// a fresh accumulator (W128_PVN output columns at a time), joined to the
+// output by a rounded f32 FMA.  No chain is longer than 8 k steps.
+// stages of the K and V^T rings; the output columns a P v accumulator takes
+// (64: two m64n64 halves of D, 128: all of D at once);
+// and whether the two consumer warpgroups take turns at the tensor cores
+// (W128_PP = 1: each issues a section of products, q k^T or P v, only when
+// the other has issued its own, so that one's softmax runs beside the
+// other's products)
+constexpr int W128_KS = 3, W128_VS = 2, W128_PVN = 128, W128_PP = 1;
+constexpr int W128_BQ = 128, W128_NT = 384;
+constexpr int W128_QLO = 64 * 128 * 4;    // bytes of a consumer's q lo
+
+template <int KS, int VS>
+constexpr int w128_smem() {
+  return 1024 + 2 * W128_QLO + (KS + VS) * W128_HALF + 2 * (KS + VS) * 8;
+}
+
+template <int KS, int VS, int PVN, int PP>
+__global__ void __launch_bounds__(W128_NT, 1)
+flash_wgmma128_kernel(const float* __restrict__ q, const float* __restrict__ planes,
+                      float* __restrict__ o, int sq, int sk, float scale_log2,
+                      int causal, int has_window, int window) {
+  constexpr int D = 128, BQ = W128_BQ, BK = W128_BK, NJ = BK / 8;
+  static_assert(BK == 32, "one atom column of V^T a tile; P v chains of 4");
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzled atoms want 1024-byte alignment
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* sbase = smem_raw + (base - raw);
+  const uint32_t s_qlo = base;                     // [2][32 KB]
+  const uint32_t s_k = s_qlo + 2 * W128_QLO;       // [KS][32 KB]
+  const uint32_t s_v = s_k + KS * W128_HALF;       // [VS][32 KB]
+  const uint32_t s_bar = s_v + VS * W128_HALF;     // full/empty of K, V
+  const uint32_t full_k = s_bar, empty_k = s_bar + 8 * KS;
+  const uint32_t full_v = s_bar + 16 * KS, empty_v = full_v + 8 * VS;
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ, tid = threadIdx.x;
   int k_begin = 0, k_end = sk;
   if (causal) k_end = min(sk, q0 + BQ);
   if (has_window) k_begin = max(0, q0 - window + 1) / BK * BK;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  auto load_tile = [&](int tile) {
-    const int kt = k_begin + tile * BK, stage = tile % STAGES;
-    float* dK = sK + stage * BK * LDK;
-    float* dV = sV + stage * BK * LDV;
-#pragma unroll
-    for (int i = 0; i < BK * D / 4 / NT; ++i) {   // 16-byte chunks
-      const int c = tid + i * NT, row = c / (D / 4), col = (c % (D / 4)) * 4;
-      const bool ok = kt + row < sk;              // padding guard: zero rows
-      const size_t off = (size_t)(ok ? kt + row : 0) * D + col;
-      cp_async16(dK + row * LDK + col, kb + off, ok);
-      cp_async16(dV + row * LDV + col, vb + off, ok);
+  if (tid == 0) {
+    for (int s = 0; s < KS; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, 256);
     }
-  };
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_tiles) load_tile(s);
-    cp_async_commit();
+    for (int s = 0; s < VS; ++s) {
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_v + 8 * s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  // q, pre-scaled by scale*log2(e), into shared memory while K/V load; the
-  // first tile's barrier makes it visible
+  if (tid < 128) {   // ------------------------------------ producer
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      const char* src = reinterpret_cast<const char*>(
+          planes + ((size_t)bh * ((sk + BK - 1) / BK) + k_begin / BK) *
+                       W128_TILE_FLOATS);
+      for (int it = 0; it < n_tiles; ++it, src += 2 * W128_HALF) {
+        const int ks = it % KS, vs = it % VS;
+        mbar_wait(empty_k + 8 * ks, ((it / KS) & 1) ^ 1);
+        mbar_expect_tx(full_k + 8 * ks, W128_HALF);
+        bulk_load(s_k + ks * W128_HALF, src, W128_HALF, full_k + 8 * ks);
+        mbar_wait(empty_v + 8 * vs, ((it / VS) & 1) ^ 1);
+        mbar_expect_tx(full_v + 8 * vs, W128_HALF);
+        bulk_load(s_v + vs * W128_HALF, src + W128_HALF, W128_HALF,
+                  full_v + 8 * vs);
+      }
+    }
+    return;
+  }
+  // ------------------------------------------------------------ consumers
+  setmaxnreg_inc<240>();
+  const int cw = tid / 128 - 1, ct = tid % 128;
+  const int warp = ct >> 5, lane = ct & 31, g = lane >> 2, t = lane & 3;
+  const int lr0 = 16 * warp + g;                   // rows within the 64
+  const int r0 = q0 + 64 * cw + lr0, r1 = r0 + 8;  // this lane's two rows
+  const uint32_t s_my_qlo = s_qlo + cw * W128_QLO;
+
+  // q, pre-scaled by scale*log2(e): hi as the A fragment of k step kd (a0
+  // row r0 dim 8kd+t, a1 row r1, a2 row r0 dim 8kd+t+4, a3 row r1), lo into
+  // shared memory at the same places of a K-major swizzled 64 x 128 tile
+  uint32_t qh[16][4];
   {
     const float* qb = q + (size_t)bh * sq * D;
+    uint8_t* my_qlo = sbase + cw * W128_QLO;
 #pragma unroll
-    for (int i = 0; i < BQ * D / 4 / NT; ++i) {
-      const int c = tid + i * NT, row = c / (D / 4), col = (c % (D / 4)) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (q0 + row < sq)
-        x = *reinterpret_cast<const float4*>(qb + (size_t)(q0 + row) * D + col);
-      x.x *= scale_log2; x.y *= scale_log2; x.z *= scale_log2; x.w *= scale_log2;
-      *reinterpret_cast<float4*>(sQ + row * LDQ + col) = x;
-    }
+    for (int kd = 0; kd < 16; ++kd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = (e & 1) ? r1 : r0, lrow = lr0 + 8 * (e & 1);
+        const int dim = 8 * kd + t + 4 * (e >> 1);
+        const float x = row < sq ? qb[(size_t)row * D + dim] * scale_log2 : 0.f;
+        uint32_t lo;
+        split(x, qh[kd][e], lo);
+        *reinterpret_cast<uint32_t*>(my_qlo + (dim >> 5) * 8192 +
+                                     sw128(lrow, dim & 31)) = lo;
+      }
   }
-  const float* qw = sQ + warp * 16 * LDQ;   // this warp's 16 rows
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + cw) : "memory");
+  // turns (PP): named barrier 3 + w is warpgroup w's turn; each arrival
+  // of the other warpgroup (128 threads) hands it one turn
+  auto my_turn = [&] {
+    if (PP) asm volatile("bar.sync %0, 256;\n" :: "r"(3 + cw) : "memory");
+  };
+  auto your_turn = [&] {
+    if (PP) asm volatile("bar.arrive %0, 256;\n" :: "r"(4 - cw) : "memory");
+  };
+  if (cw == 1) your_turn();   // consumer 0 goes first
 
   float acc[D / 8][4];   // output: n-tile n covers dims 8n..8n+7
 #pragma unroll
@@ -644,50 +979,40 @@ flash_mma128_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float l_run[2] = {0.f, 0.f};           // this lane's part of the row sums
 
   for (int it = 0; it < n_tiles; ++it) {
-    if (it + STAGES - 1 < n_tiles) load_tile(it + STAGES - 1);
-    cp_async_commit();
-    cp_async_wait<STAGES - 1>();
-    __syncthreads();
-    const float* cK = sK + (it % STAGES) * BK * LDK;
-    const float* cV = sV + (it % STAGES) * BK * LDV;
+    const int ks = it % KS, vs = it % VS;
     const int kt = k_begin + it * BK;
+    const uint32_t sK = s_k + ks * W128_HALF, sV = s_v + vs * W128_HALF;
 
-    // s = q k^T: n-tile j covers keys kt+8j..kt+8j+7.  D's two 64-wide
-    // halves are each a chain of 8 mma k steps into fresh registers, joined
-    // with a rounded f32 add (the tensor cores truncate as they accumulate).
-    // Step kk of half h covers dims 64h+8kk..: k = t <-> dim 64h+8kk+2t,
-    // k = t+4 <-> dim 64h+8kk+2t+1, for q and K alike.
-    float s[NJ][4];
+    // S = q k^T: chain h sums dims 64h..64h+63 in 8 k steps of three
+    // products into fresh registers (scale-d 0 on its first product)
+    mbar_wait(full_k + 8 * ks, (it / KS) & 1);
+    float c[2][NJ][4];
+    my_turn();
+    wgmma_fence();
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float st[NJ][4];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = 0.f;
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
-        const int d0 = 64 * h + 8 * kk + 2 * t;
-        uint32_t ah[4], al[4];
-        split_a(*reinterpret_cast<const float2*>(qw + g * LDQ + d0),
-                *reinterpret_cast<const float2*>(qw + (g + 8) * LDQ + d0), ah, al);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float2 kv =
-              *reinterpret_cast<const float2*>(cK + (8 * j + g) * LDK + d0);
-          uint32_t bh_[2], bl_[2];
-          split_b(kv.x, kv.y, bh_, bl_);
-          mma_3xtf32(st[j], ah, al, bh_, bl_);
-        }
+        const int kd = 8 * h + kk;
+        const uint64_t da = desc_sw128(s_my_qlo + (kd >> 2) * 8192 + (kd & 3) * 32);
+        const uint64_t dkh = desc_sw128(sK + (kd >> 2) * (BK * 128) + (kd & 3) * 32);
+        const uint64_t dkl = dkh + ((4 * W128_PLANE) >> 4);
+        wgmma_n32_ss(c[h], da, dkh, kk);        // q lo * K hi
+        wgmma_n32_rs(c[h], qh[kd], dkl, 1);     // q hi * K lo
+        wgmma_n32_rs(c[h], qh[kd], dkh, 1);     // q hi * K hi
       }
+    wgmma_commit();
+    your_turn();
+    wgmma_wait<0>();
+    fence_regs(c[0]);
+    fence_regs(c[1]);
+    fence_regs(qh);
+    mbar_arrive(empty_k + 8 * ks);
+    float s[NJ][4];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (h == 0) s[j][e] = st[j][e];
-          else s[j][e] += st[j][e];
-        }
-    }
+      for (int e = 0; e < 4; ++e) s[j][e] = c[0][j][e] + c[1][j][e];
 
     // online softmax, as in flash_mma64_kernel
     float alpha[2];
@@ -698,31 +1023,46 @@ flash_mma128_kernel(const float* __restrict__ q, const float* __restrict__ k,
       tile_softmax<true>(s, m_run, l_run, alpha, kt, t, r0, r1, sk, causal,
                          has_window, window);
 
-    // pv = P v over this tile, one output n-tile at a time: P is split once
-    // (its A fragments are s[j] itself), each n-tile sums its NJ k steps
-    // into fresh registers and joins the running output with a rounded
-    // f32 FMA.  That order holds 4 accumulators instead of D / 2.
+    // P's A fragment of k step j (keys kt+8j..): a0 row r0 key 2t, a1 row
+    // r1 key 2t, a2 row r0 key 2t+1, a3 row r1 key 2t+1; split once
     uint32_t ph[NJ][4], pl[NJ][4];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      split_a(make_float2(s[j][0], s[j][1]), make_float2(s[j][2], s[j][3]),
-              ph[j], pl[j]);
+    for (int j = 0; j < NJ; ++j) {
+      split(s[j][0], ph[j][0], pl[j][0]);
+      split(s[j][2], ph[j][1], pl[j][1]);
+      split(s[j][1], ph[j][2], pl[j][2]);
+      split(s[j][3], ph[j][3], pl[j][3]);
+    }
+    mbar_wait(full_v + 8 * vs, (it / VS) & 1);
+    my_turn();
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      float pv[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int h = 0; h < D / PVN; ++h) {   // output dims PVN*h..
+      float pv[PVN / 8][4];
+      wgmma_fence();
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const float* v0 = cV + (8 * j + 2 * t) * LDV + 8 * n + g;
-        uint32_t bh_[2], bl_[2];
-        split_b(v0[0], v0[LDV], bh_, bl_);
-        mma_3xtf32(pv, ph[j], pl[j], bh_, bl_);
+        const uint64_t dvh = desc_sw128(sV + h * PVN * 128 + j * 32);
+        const uint64_t dvl = dvh + ((4 * W128_PLANE) >> 4);
+        wgmma_rs(pv, pl[j], dvh, j);            // P lo * V hi
+        wgmma_rs(pv, ph[j], dvl, 1);            // P hi * V lo
+        wgmma_rs(pv, ph[j], dvh, 1);            // P hi * V hi
       }
+      wgmma_commit();
+      if (h == D / PVN - 1) your_turn();
+      wgmma_wait<0>();
+      fence_regs(pv);
+      fence_regs(ph);
+      fence_regs(pl);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], pv[e]);
+      for (int n = 0; n < PVN / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[PVN / 8 * h + n][e] =
+              fmaf(acc[PVN / 8 * h + n][e], alpha[e >> 1], pv[n][e]);
     }
-    __syncthreads();   // this stage's reads are done before it is refilled
+    mbar_arrive(empty_v + 8 * vs);
   }
-  cp_async_wait<0>();
+  if (cw == 0) my_turn();   // consumer 1's last hand-over
 
   float* ob = o + (size_t)bh * sq * D;
 #pragma unroll
@@ -999,18 +1339,30 @@ int launch_mma64(const float* q, const float* k, const float* v, float* o,
   return (int)cudaGetLastError();
 }
 
-template <int BK, int NW>
-int launch_mma128(const float* q, const float* k, const float* v, float* o,
-                  int bh, int sq, int sk, float scale, int causal,
-                  int has_window, int window, cudaStream_t stream) {
-  constexpr int smem = m128_smem<BK, NW>();
-  auto kernel = flash_mma128_kernel<BK, NW>;
+// The D = 128 route: the split planes, then the main kernel.
+int launch_split128(const float* k, const float* v, float* planes, int bh,
+                    int sk, cudaStream_t stream) {
+  if (sk <= 0) return 0;   // no key: the main kernel writes zeros
+  flash_split128_kernel<<<dim3((sk + W128_BK - 1) / W128_BK, bh), 256, 0,
+                          stream>>>(k, v, planes, sk);
+  return (int)cudaGetLastError();
+}
+
+template <int KS, int VS, int PVN, int PP>
+int launch_wgmma128(const float* q, const float* k, const float* v, float* o,
+                    float* planes, int bh, int sq, int sk, float scale,
+                    int causal, int has_window, int window, cudaStream_t stream) {
+  int err = launch_split128(k, v, planes, bh, sk, stream);
+  if (err != 0) return err;
+  constexpr int smem = w128_smem<KS, VS>();
+  auto kernel = flash_wgmma128_kernel<KS, VS, PVN, PP>;
   static unsigned long long done = 0;
-  cudaError_t err = allow_smem((const void*)kernel, smem, done);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((sq + 16 * NW - 1) / (16 * NW), bh);
-  kernel<<<grid, 32 * NW, smem, stream>>>(
-      q, k, v, o, sq, sk, scale * kLog2e, causal, has_window, window);
+  err = (int)allow_smem((const void*)kernel, smem, done);
+  if (err != 0) return err;
+  dim3 grid((sq + W128_BQ - 1) / W128_BQ, bh);
+  kernel<<<grid, W128_NT, smem, stream>>>(q, planes, o, sq, sk,
+                                          scale * kLog2e, causal, has_window,
+                                          window);
   return (int)cudaGetLastError();
 }
 
@@ -1075,9 +1427,12 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // Floats of device scratch that flash_attention_fwd needs for these
-// arguments: 0 for every route but the split-KV one.
+// arguments: the split planes of the f32 D = 128 route, the partials of
+// the split-KV route, 0 for every other route.
 extern "C" long long flash_attention_scratch_floats(int bh, int sq, int sk,
                                                     int d, int dtype) {
+  if (dtype == 0 && d == 128)
+    return (long long)bh * ((sk + W128_BK - 1) / W128_BK) * W128_TILE_FLOATS;
   if (dtype != 0 || d != SKV_D) return 0;
   return (long long)skv_chunks(sk) * bh * sq * (SKV_D + 2);
 }
@@ -1103,10 +1458,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                         lse_f, bh, sq, sk, scale, causal, has_window, window, st);
   if (lse != nullptr && (dtype != 0 || d == 128 || d == SKV_D)) return -1;
   if (dtype == 0 && d == 128)
-    return launch_mma128<M128_BK, M128_NW>(
+    return launch_wgmma128<W128_KS, W128_VS, W128_PVN, W128_PP>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), bh, sq, sk,
-        scale, causal, has_window, window, st);
+        static_cast<const float*>(v), static_cast<float*>(o),
+        static_cast<float*>(scratch), bh, sq, sk, scale, causal, has_window,
+        window, st);
   if (dtype == 0 && d == SKV_D) {
     const int err = launch_partials(
         static_cast<const float*>(q), static_cast<const float*>(k),
@@ -1146,4 +1502,18 @@ extern "C" int flash_attention_merge(const void* scratch, void* o, int bh,
                                      int sq, int sk, void* stream) {
   return launch_merge(static_cast<const float*>(scratch), static_cast<float*>(o),
                       bh, sq, sk, static_cast<cudaStream_t>(stream));
+}
+
+// The D = 128 route's split planes on their own (f32 k and v [bh, sk,
+// 128]), for holding the pre-pass against its plain version: planes of
+// flash_attention_scratch_floats(bh, *, sk, 128, 0) floats, in tiles of
+// flash_attention_d128_tile() keys.
+extern "C" int flash_attention_d128_tile() { return W128_BK; }
+
+extern "C" int flash_attention_split128(const void* k, const void* v,
+                                        void* planes, int bh, int sk,
+                                        void* stream) {
+  return launch_split128(static_cast<const float*>(k), static_cast<const float*>(v),
+                         static_cast<float*>(planes), bh, sk,
+                         static_cast<cudaStream_t>(stream));
 }

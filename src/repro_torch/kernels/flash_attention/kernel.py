@@ -6,11 +6,19 @@ Replaces the Pallas TPU kernel ``flash_attention`` / ``_attn_kernel``
 ``csrc/flash_attention.cu``; its header note gives the bound at the main
 path's shape and what the design does about it.  It is compiled with
 ``nvcc`` for ``sm_90a`` at first use (:mod:`repro_torch.kernels.build`) and
-bound with ``ctypes``.  The source routes by shape: f32 at head dims 64
-and 128 to split-precision TF32 tensor-core tiles, f32 at head dim 1024 to
-a split-KV grid and a merge kernel (the wrapper allocates their scratch),
-the rest (head dims 8, 16 and 32, and bf16 at every head dim) to a
-CUDA-core template.  Head dims: ``SUPPORTED_HEAD_DIMS``.
+bound with ``ctypes``.  The source routes by shape: f32 at head dim 64 to
+split-precision TF32 ``mma.sync`` tiles; f32 at head dim 128 (Flux's
+heads) to a pre-pass that splits K and V once into TF32 hi/lo planes laid
+out as shared memory holds them (:func:`split_planes`), then a
+warp-specialised kernel whose producer warpgroup copies the planes tile by
+tile with TMA bulk copies and whose two consumer warpgroups run
+split-TF32 ``wgmma`` products, each chain of sums at most 8 k steps (the
+source's header note gives the bound, the chain structure with its
+emulated margin, and the times); f32 at head dim 1024 to a split-KV grid
+and a merge kernel; the rest (head dims 8, 16 and 32, and bf16 at every
+head dim) to a CUDA-core template.  The wrapper allocates each route's
+scratch (the planes, the split-KV partials).  Head dims:
+``SUPPORTED_HEAD_DIMS``.
 
 :func:`flash_attention` takes the plain version (:func:`attention_ref`)
 only for tensors on the CPU.  For CUDA tensors it launches the kernels or
@@ -46,6 +54,7 @@ from repro_torch.kernels.flash_attention.ref import (
     attention_partial_ref,
     attention_ref,
     merge_partials_ref,
+    split_planes_ref,
 )
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -54,6 +63,7 @@ SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 128, 1024)
 BWD_HEAD_DIMS = (8, 16, 32, 64)  # the backward: f32 at these head dims
 SPLIT_KV_HEAD_DIM = 1024        # f32 at this head dim takes the split-KV route
 SPLIT_KV_CHUNK = 64             # keys per split-KV block
+D128_TILE = 32                  # keys a tile of the head-dim-128 split planes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT, _PTR = ctypes.c_int, ctypes.c_void_p
 
@@ -75,12 +85,18 @@ def _kernel() -> Any:
                 ("flash_attention_partials", [_PTR] * 4 + [_INT] * 3
                  + [ctypes.c_float] + [_INT] * 3 + [_PTR], _INT),
                 ("flash_attention_merge", [_PTR] * 2 + [_INT] * 3 + [_PTR],
+                 _INT),
+                ("flash_attention_d128_tile", [], _INT),
+                ("flash_attention_split128", [_PTR] * 3 + [_INT] * 2 + [_PTR],
                  _INT)):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, res
         if lib.flash_attention_split_kv_chunk() != SPLIT_KV_CHUNK:
             raise RuntimeError("flash_attention: the built library's split-KV "
                                "chunk differs from SPLIT_KV_CHUNK")
+        if lib.flash_attention_d128_tile() != D128_TILE:
+            raise RuntimeError("flash_attention: the built library's head-"
+                               "dim-128 tile differs from D128_TILE")
         _lib = lib
     return _lib
 
@@ -312,3 +328,27 @@ def _partials_views(bh: int, sq: int, sk: int, device) -> tuple:
     return (scratch[:n * d].view(c, bh, sq, d),
             scratch[n * d:n * (d + 1)].view(c, bh, sq),
             scratch[n * (d + 1):].view(c, bh, sq), scratch)
+
+
+def split_planes(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The f32 head-dim-128 route's pre-pass on its own, so that it can be
+    held against its plain version: :func:`split_planes_ref`'s planes of
+    ``[BH, Sk, 128]`` k and v, ``[BH, ceil(Sk / D128_TILE), 4, D128_TILE *
+    128]`` f32, from the pre-pass kernel (``flash_attention`` runs it before
+    the main kernel on every call)."""
+    if k.device.type == "cpu":
+        return split_planes_ref(k, v, tile=D128_TILE)
+    _check(k, k, v)
+    bh, sk, d = k.shape
+    if k.dtype != torch.float32 or d != 128:
+        raise ValueError(f"split_planes: the head-dim-128 route takes f32 at "
+                         f"head dim 128, got {k.dtype}, {d}")
+    lib = _kernel()
+    n = lib.flash_attention_scratch_floats(bh, 1, sk, d, 0)
+    planes = torch.empty(n, dtype=torch.float32, device=k.device)
+    with torch.cuda.device(k.device):
+        err = lib.flash_attention_split128(
+            k.data_ptr(), v.data_ptr(), planes.data_ptr(), bh, sk,
+            torch.cuda.current_stream(k.device).cuda_stream)
+    _raise_on(err, "head-dim-128 split planes")
+    return planes.view(bh, -1, 4, D128_TILE * 128)

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the flash-attention kernels (f32 math): the
-forward, its row log-sum-exp, the backward, and the split-KV route's two
-passes."""
+forward, its row log-sum-exp, the backward, the split-KV route's two
+passes, and the split planes of the head-dim-128 route's pre-pass."""
 
 from __future__ import annotations
 
@@ -156,3 +156,59 @@ def merge_partials_ref(
     den = (w * l).sum(dim=0)
     den = torch.where(den == 0, 1.0, den)
     return (num / den[..., None]).to(dtype)
+
+
+def _sw128(r, c):
+    """Byte offset of the float at (row r, column c < 32) of a column of
+    128-byte swizzled atoms: 16-byte chunk c // 4 of row r stored at chunk
+    (c // 4) ^ (r % 8)."""
+    return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + (c & 3) * 4
+
+
+def _tf32_cut(x: torch.Tensor) -> torch.Tensor:
+    """x with its low 13 mantissa bits set to 0 (the kernels' ``split``)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split_planes_ref(
+    k: torch.Tensor,            # [BH, Sk, 128] f32
+    v: torch.Tensor,            # [BH, Sk, 128] f32
+    *,
+    tile: int = 32,
+) -> torch.Tensor:
+    """The head-dim-128 route's split planes: [BH, ceil(Sk / tile), 4,
+    tile * 128] f32, for each tile of keys K hi, K lo, V^T hi and V^T lo,
+    each TF32 part cut (hi = cut(x), lo = cut(x - hi)), keys past Sk zero,
+    laid out as the kernel's shared memory holds them.  K: key row r, dim d
+    at column d // 32 of atoms (tile * 128 bytes each), position
+    ``_sw128(r, d % 32)``.  V^T: dim row d, tile slot s at column s // 32 of
+    atoms (128 * 128 bytes each), position ``_sw128(d, s % 32)``, where slot
+    8g + i holds key 8g + (0, 2, 4, 6, 1, 3, 5, 7)[i]."""
+    bh, sk, d = k.shape
+    if d != 128 or tile % 32:
+        raise ValueError(f"split_planes_ref: head dim {d}, tile {tile}")
+    n = -(-sk // tile)
+    pad = (0, 0, 0, n * tile - sk)
+    kt = torch.nn.functional.pad(k.float(), pad).view(bh, n, tile, d)
+    vt = torch.nn.functional.pad(v.float(), pad).view(bh, n, tile, d)
+    rows = torch.arange(tile)[:, None]
+    dims = torch.arange(d)[None, :]
+    # K: float index of (key r, dim d) in the plane
+    k_at = ((dims // 32) * tile * 128
+            + _sw128(rows, dims % 32)) // 4                  # [tile, d]
+    # V^T: float index of (dim row, slot) and the key each slot holds
+    slots = torch.arange(tile)[None, :]
+    v_at = ((slots // 32) * 128 * 128
+            + _sw128(dims.T, slots % 32)) // 4               # [d, tile]
+    perm = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])
+    key_of = 8 * (slots[0] // 8) + perm[slots[0] % 8]        # [tile]
+    out = torch.zeros((bh, n, 4, tile * d), dtype=torch.float32,
+                      device=k.device)
+    for i, (x, at) in enumerate(
+            ((kt, k_at), (vt[:, :, key_of, :].transpose(-1, -2), v_at))):
+        hi = _tf32_cut(x)
+        lo = _tf32_cut(x - hi)
+        flat = at.reshape(-1).to(k.device)
+        out[:, :, 2 * i, flat] = hi.reshape(bh, n, -1)
+        out[:, :, 2 * i + 1, flat] = lo.reshape(bh, n, -1)
+    return out

@@ -36,8 +36,9 @@ GRID = [
     ((2, 333, 333, 1024), True, 70),
     ((1, 200, 150, 1024), True, 1),
     ((1, 16, 17000, 1024), False, None),  # the merge takes 266 chunks
-    # head dim 128 (Flux's heads): f32 on the tensor-core tiles, bf16 on
-    # the CUDA-core template; Flux's joint attention at published width,
+    # head dim 128 (Flux's heads): f32 on the wgmma route (a split-plane
+    # pre-pass, then warpgroup tiles), bf16 on the CUDA-core template;
+    # Flux's joint attention at published width,
     # full and ragged tiles, causal and window bands, rows with no key,
     # rectangular Sq < Sk and Sq > Sk
     ((24, 4608, 4608, 128), False, None),
@@ -47,6 +48,7 @@ GRID = [
     ((1, 200, 150, 128), True, 1),
     ((3, 100, 333, 128), False, None),
     ((2, 333, 100, 128), False, None),
+    ((1, 400, 150, 128), True, 1),      # blocks that see no key tile
 ]
 
 
@@ -73,6 +75,41 @@ def test_kernel_matches_plain_version(card, shape, causal, window, dtype, atol):
     want = attention_ref(q, k, v, causal=causal, window=window)
     assert out.dtype == dtype
     torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=atol)
+
+
+D128 = [g for g in GRID if g[0][3] == 128]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,window", D128)
+def test_d128_route_gives_the_same_bits_twice(card, shape, causal, window):
+    """The f32 head-dim-128 route sums in a fixed order (no atomics, no
+    order that depends on timing): a second call on the same inputs gives
+    the same bits."""
+    bh, sq, sk, d = shape
+    r = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(r.standard_normal((bh, n, d)).astype(np.float32))
+               .to(card) for n in (sq, sk, sk))
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal,
+                                            window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sk", [(2, 77), (3, 333), (1, 1), (24, 4608)])
+def test_split_planes_match_plain_version(card, bh, sk):
+    """The f32 head-dim-128 route's pre-pass bit for bit against
+    ``split_planes_ref`` (cut TF32 parts, the swizzled layout, V^T's key
+    order, zero keys past a ragged Sk)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import split_planes_ref
+
+    r = np.random.default_rng(8)
+    k, v = (torch.from_numpy(r.standard_normal((bh, sk, 128)).astype(np.float32))
+            .to(card) for _ in range(2))
+    got = fk.split_planes(k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, split_planes_ref(k, v, tile=fk.D128_TILE))
 
 
 @pytest.mark.cuda

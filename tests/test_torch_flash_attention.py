@@ -212,7 +212,9 @@ def test_kernel_checks_head_dim(monkeypatch, d, ok):
 # 1024 is emulated in plain torch: 3xTF32 products (split-precision TF32 on
 # the tensor cores, f32 sums; at head dim 128 q k^T sums D in two chains of
 # 8 k steps joined by an f32 add, as the kernel does) and the split-KV
-# partials and their merge.
+# partials and their merge.  The head-dim-128 route's order of sums (its
+# key tiles, online softmax and tensor-core chains, each product's sum
+# truncated) is emulated with ``tile``.
 
 def _tf32(x: torch.Tensor, rounding: str) -> torch.Tensor:
     """f32 reduced to TF32 (10 mantissa bits): cut (the low 13 bits set to
@@ -235,10 +237,82 @@ def _tf32_product(a: torch.Tensor, b: torch.Tensor, passes: int, rounding):
     return out
 
 
-def _tf32_attention(q, k, v, passes, rounding, chain=None):
+def _truncated_chain(a, b, passes, rounding, acc=None):
+    """acc + a @ b on the tensor cores: TF32 operands (one pass, or lo * hi,
+    hi * lo, hi * hi), each product an instruction of 8 k steps whose exact
+    sum with the accumulator is truncated toward zero to f32, as the tensor
+    cores truncate as they accumulate.  Values are f32 held in float64
+    (the sum of 8 exact TF32 products and an f32 loses nothing there);
+    a and b are [batch, rows, k] and [batch, k, cols]."""
+    ah, bh = _tf32(a, rounding), _tf32(b, rounding)
+    al, bl = _tf32(a - ah, rounding), _tf32(b - bh, rounding)
+    terms = ([(al, bh), (ah, bl), (ah, bh)] if passes == 3 else [(ah, bh)])
+    terms = [(x.double(), y.double()) for x, y in terms]
+    acc = (torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float64)
+           if acc is None else acc.clone())
+    cut = ~((1 << 29) - 1)       # float64 mantissa bits below f32's 24
+    for i in range(0, a.shape[-1], 8):
+        for x, y in terms:
+            acc.baddbmm_(x[..., i:i + 8], y[..., i:i + 8, :])
+            acc.view(torch.int64).bitwise_and_(cut)
+    return acc
+
+
+def _tile_order(q, k, v, passes, rounding, chain, tile, pv, rows=1152):
+    """The head-dim-128 route's order of sums: q pre-scaled by
+    scale*log2(e); S = q k^T in truncated chains of ``chain`` dims joined
+    by f32 adds; an online softmax (exp2, running max and sum in f32) over
+    key tiles of ``tile``; P v either in a fresh truncated chain per tile
+    joined to the output by a rounded f32 FMA (``pv="fresh"``, the kernel's
+    order) or accumulated into the rescaled output itself (``"in place"``).
+    Query rows are independent: they go in blocks of ``rows``."""
+    scale_log2 = np.float32(np.log2(np.e) / np.sqrt(q.shape[-1]))
+    out = []
+    for r0 in range(0, q.shape[-2], rows):
+        qs = q[..., r0:r0 + rows, :] * scale_log2
+        s = None
+        for c in range(0, q.shape[-1], chain):
+            part = _truncated_chain(
+                qs[..., c:c + chain],
+                k[..., c:c + chain].transpose(-1, -2).contiguous(),
+                passes, rounding).float()
+            s = part if s is None else s + part
+        m = torch.full(s.shape[:-1] + (1,), -1e30)
+        l = torch.zeros(s.shape[:-1] + (1,))
+        o = torch.zeros(s.shape[:-1] + v.shape[-1:], dtype=torch.float64)
+        for t0 in range(0, k.shape[-2], tile):
+            st = s[..., t0:t0 + tile]
+            m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(st - m_new)
+            l, m = alpha * l + p.sum(dim=-1, keepdim=True), m_new
+            vt = v[..., t0:t0 + tile, :]
+            if pv == "fresh":
+                o = (o * alpha.double()
+                     + _truncated_chain(p, vt, passes, rounding)).float()
+            else:
+                o = _truncated_chain(p, vt, passes, rounding,
+                                     (o * alpha.double()).float().double())
+            o = o.double()
+        out.append(o.float() / l)
+    return torch.cat(out, dim=-2)
+
+
+def _tf32_attention(q, k, v, passes, rounding, chain=None, tile=None,
+                    pv="fresh"):
     """3xTF32 (or one-pass) attention; with ``chain``, q k^T sums D in
     chains of that many dims, each joined to the running sum by an f32
-    add."""
+    add; with ``tile``, in the head-dim-128 route's order (``_tile_order``)."""
+    if tile is not None:
+        # thousands of small ops: one thread each, or the test workers'
+        # thread pools, several to a core, stall one another
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            return _tile_order(q, k, v, passes, rounding,
+                               chain or q.shape[-1], tile, pv)
+        finally:
+            torch.set_num_threads(threads)
     q = q / np.sqrt(q.shape[-1])
     chain = chain or q.shape[-1]
     s = sum(_tf32_product(q[..., c:c + chain],
@@ -251,30 +325,101 @@ def _tf32_attention(q, k, v, passes, rounding, chain=None):
 
 
 @pytest.mark.parametrize("rounding", ["cut", "rna"])
-@pytest.mark.parametrize("shape,chain", [
-    ((1, 4429, 4429, 64), None),
-    ((1, 4608, 4608, 128), 64),     # Flux's joint attention, D in 2 chains
-    ((1, 333, 333, 1024), None),
-], ids=["mmdit", "flux", "text"])
-def test_split_tf32_products_hold_the_f32_gate(shape, chain, rounding):
+@pytest.mark.parametrize("shape,chain,tile", [
+    ((1, 4429, 4429, 64), None, None),
+    ((1, 4608, 4608, 128), 64, None),   # Flux's joint attention, D in 2 chains
+    ((1, 333, 333, 1024), None, None),
+    # the head-dim-128 route's order: 32-key tiles, truncated sums
+    ((1, 4608, 4608, 128), 64, 32),
+], ids=["mmdit", "flux", "text", "flux-wgmma"])
+def test_split_tf32_products_hold_the_f32_gate(shape, chain, tile, rounding):
     """3xTF32 attention lies within the f32 gate (2e-5) of the float64
     reference at the path's sequence lengths, and one TF32 pass misses it:
     the gate tells the two apart, so the kernel needs the three passes.
     The kernel cuts its operands to TF32; rounding them to nearest holds
     the gate too.  At head dim 128 the kernel sums q k^T's two 64-wide
-    halves of D in chains of 8 mma k steps and adds them in f32."""
+    halves of D in chains of 8 k steps and adds them in f32; the
+    head-dim-128 route (``flux-wgmma``) does so in its own order, every
+    tensor-core sum truncated, P v a fresh chain of 4 k steps a 32-key
+    tile joined to the output by an f32 FMA."""
     bh, sq, sk, d = shape
     r = np.random.default_rng(3)
     q, k, v = (torch.from_numpy(r.standard_normal((bh, n, d)).astype(np.float32))
                for n in (sq, sk, sk))
     qd, kd, vd = q.double(), k.double(), v.double()
     want = torch.softmax(qd @ kd.transpose(-1, -2) / np.sqrt(d), dim=-1) @ vd
-    err3 = float((_tf32_attention(q, k, v, 3, rounding, chain).double()
+    err3 = float((_tf32_attention(q, k, v, 3, rounding, chain, tile).double()
                   - want).abs().max())
-    err1 = float((_tf32_attention(q, k, v, 1, rounding, chain).double()
+    err1 = float((_tf32_attention(q, k, v, 1, rounding, chain, tile).double()
                   - want).abs().max())
     assert err3 <= 2e-5, err3
     assert err1 > 2e-5, err1
+
+
+@pytest.mark.parametrize("rounding", ["cut", "rna"])
+def test_in_place_output_chain_misses_the_f32_gate(rounding):
+    """Why the head-dim-128 route sums P v of each tile into fresh
+    registers: accumulated into the output itself, P v is one truncated
+    chain over all 4608 keys (1728 products), and its bias toward zero
+    grows with the output.  With values whose mean is not 0 (V + 1, as
+    activations have) that order misses the f32 gate at Flux's key length
+    and the route's fresh chains hold it with room.  Query rows are
+    independent, so 512 of them stand for Flux's 4608."""
+    r = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(r.standard_normal((1, n, 128)).astype(np.float32))
+               for n in (512, 4608, 4608))
+    v = v + 1.0
+    want = (torch.softmax(q.double() @ k.double().transpose(-1, -2)
+                          / np.sqrt(128), dim=-1) @ v.double())
+    errs = {pv: float((_tf32_attention(q, k, v, 3, rounding, 64, 32, pv)
+                       .double() - want).abs().max())
+            for pv in ("fresh", "in place")}
+    assert errs["fresh"] <= 2e-5 / 4, errs
+    assert errs["in place"] > 2e-5, errs
+
+
+def test_split_planes_hold_both_parts_in_the_kernels_layout():
+    """The head-dim-128 pre-pass's plain version on a ragged Sk (77 keys,
+    3 tiles of 32): each plane is a permutation of its tile's values, K hi
+    and lo (and V^T's) are the TF32 cut of x and of x - hi, hi + lo is x
+    to 2^-21, keys past Sk are zero, and V^T's slots hold each 8-key group
+    in the order 0 2 4 6 1 3 5 7.  The wrapper takes it on the CPU and
+    counts no launch."""
+    from repro_torch.kernels.flash_attention.ref import (
+        _sw128,
+        split_planes_ref,
+    )
+    r = np.random.default_rng(5)
+    k, v = (torch.from_numpy(r.standard_normal((2, 77, 128)).astype(np.float32))
+            for _ in range(2))
+    before = flash_attention.launches
+    planes = fa_kernel.split_planes(k, v)
+    assert flash_attention.launches == before
+    torch.testing.assert_close(planes, split_planes_ref(k, v), rtol=0, atol=0)
+    assert planes.shape == (2, 3, 4, 32 * 128)
+    # undo the layout: float index of (key row, dim) and (dim row, slot)
+    rows, dims, slots = (torch.arange(32)[:, None], torch.arange(128)[None, :],
+                         torch.arange(32)[None, :])
+    k_at = ((dims // 32) * 32 * 128 + _sw128(rows, dims % 32)) // 4
+    v_at = _sw128(dims.T, slots) // 4
+    for at in (k_at, v_at):
+        assert sorted(at.reshape(-1).tolist()) == list(range(32 * 128))
+    perm = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])
+    key_of = 8 * (torch.arange(32) // 8) + perm[torch.arange(32) % 8]
+    pad = torch.zeros(2, 96 - 77, 128)
+    for x, lo_i, at, transpose in ((k, 0, k_at, False), (v, 2, v_at, True)):
+        full = torch.cat([x, pad], dim=1).view(2, 3, 32, 128)
+        if transpose:           # [BH, tile, dim row, slot]
+            full = full[:, :, key_of, :].transpose(-1, -2)
+        hi = planes[:, :, lo_i][..., at]
+        lo = planes[:, :, lo_i + 1][..., at]
+        cut = lambda y: (y.contiguous().view(torch.int32)
+                         & ~0x1FFF).view(torch.float32)
+        assert torch.equal(hi, cut(full))
+        assert torch.equal(lo, cut(full - cut(full)))
+        assert float((hi + lo - full).abs().max()) <= 2 ** -21 * float(
+            full.abs().max())
+    assert torch.all(planes[:, 2, :2][..., k_at][:, :, 77 - 64:, :] == 0)
 
 
 def _tf32_attention_bwd(q, k, v, o, lse, do, mask, passes):
