@@ -18,7 +18,7 @@ Phases (any failed check raises, and the script exits non-zero):
    (wholly masked tiles and chunks, rows with no key, rectangular shapes
    at 128), 17000 keys at head dim 1024 (a merge of 266 chunks), and the
    full-width path shapes at f32, (48 | 96 | 144, 4429, 64), (4 | 8, 333,
-   1024), phase 4f's (24, 4608, 128), (76, 4429, 64) and (4, 512,
+   1024), phase 4t's basic (24, 4608, 128), (76, 4429, 64) and (4, 512,
    1024), and (4, 512, 128) (atol 2e-5: the
    kernel's 3xTF32 products keep about 20 bits, the plain version's f32
    FMAs 24; TF32 is off in the plain version); every f32 head-dim-128
@@ -70,37 +70,76 @@ Phases (any failed check raises, and the script exits non-zero):
    (``set_flash_attention(False)``, restored afterwards): each image served
    through the kernel lies within ``KERNEL_VS_PLAIN_REL`` of it.
 5. Flash attention at the exact shapes the basic path gave it, held against
-   the plain version and timed (CUDA events, median of 10 after 2 warm-ups)
-   beside the plain version, ``scaled_dot_product_attention`` (a yardstick
-   the port never calls) and two bounds: ``bound_ms`` at the 3xTF32 rate
+   the plain version and timed (CUDA events, median of 10 after 2 warm-ups,
+   and the card's own time over 20 calls queued behind a sleep kernel:
+   ``queued_ms``) beside the plain
+   version, ``scaled_dot_product_attention`` (a yardstick the port never
+   calls) and two bounds: ``bound_ms`` at the 3xTF32 rate
    the kernel runs (495 / 3 TFLOP/s) and, on the ``[time]`` lines only,
    ``bound_f32_fma_ms`` at the f32 rate outside the tensor cores
    (67 TFLOP/s).
 6. Where the time goes on the basic path: its two requests served again on
    the warm system under ``torch.profiler``; device time by kernel, the
    attention kernels' share (``FLASH_KERNELS``: every CUDA kernel the flash
-   wrapper launches), and the card's idle share of the wall time.
-4f. Table 2's other families at published width, once phase 4's system is
-   freed (``family_phase``): one ``flux-schnell:basic`` request at
-   ``REAL["flux-dev"]`` (flux-schnell's backbone: d 3072, 57 layers, 24
-   heads of 128, 4096 + 512 tokens, no CFG rows) and one
-   ``sd3.5-large:basic`` request at ``REAL["sd3.5-large"]`` (d 2432, 38
-   layers, 38 heads of 64, CFG rows), ``STEPS`` steps each (flux-schnell's
-   published count), each on a fresh ``ServingSystem(n_executors=1,
-   backend=LocalBackend(device="cuda"))`` freed before the next.  Counts
-   set to 0 just before and read just after: flash attention exactly a
-   launch per layer and step plus 2 for the text encoder (230 and 154),
-   at the shapes ``expected_flash`` reckons, no other kernel.  Each image
-   (1, 1024, 1024, 3), finite, in [-1, 1], and within
-   ``KERNEL_VS_PLAIN_REL`` of the same request served through the plain
-   attention route.  Printed: wall, peak memory, the plain route's wall.
-5f. Flash attention at each shape phase 4f gave it that phase 5 did not
-   cover ((24, 4608, 4608, 128), (76, 4429, 4429, 64), (4, 512, 512,
-   1024)), held against the plain version (f32 atol 2e-5) and timed as in
-   phase 5, both bounds included.
-6f. Where the time goes on each family's request: served again on its warm
-   system under the profiler (inside 4f); flash attention and the f32
-   GEMMs by device time and share of busy time, and the idle share.
+   wrapper launches), and the card's idle share of the wall time.  The
+   profiler can lose kernel records, so the flash-attention kernels'
+   records are held against the wrapper's launches in the window
+   (``flash_records``): where any is missing, every device time of that
+   profile prints "not measured".  So for every profiled phase.
+4t. Table 2's SD3.5-Large (S2) and Flux (S3) workflows at published width,
+   once phase 4's system is freed (``table2_phase``): sd3.5-large at
+   ``REAL["sd3.5-large"]`` (d 2432, 38 layers, 38 heads of 64, CFG rows, a
+   19-layer ControlNet) and flux-schnell at ``REAL["flux-dev"]`` (d 3072,
+   57 layers, 24 heads of 128, 4096 + 512 tokens, no CFG rows, a 28-layer
+   ControlNet), ``STEPS`` steps a request (flux-schnell's published
+   count), ``REQUESTS[0]`` and, for a ControlNet workflow, the reference
+   image of ``REF_SEEDS[0]``.  For each family the weights are drawn once
+   on the card through the models' own loads (``draw_model_set``; both
+   ControlNets with a nonzero ``cond_embed``) and every workflow's fused
+   segment shares them, on one ``ServingSystem(n_executors=1,
+   backend=LocalBackend(device="cuda"))``: sd3.5-large basic, cn1 and cn2
+   in f32, flux-schnell basic and cn1 (f32 flux-schnell:cn2 is not served:
+   its bf16 weights alone are 72.5 GiB; the script prints that reckoning
+   beside cn1's measured peak and the cost model's ControlNet bytes).  For
+   each request the counts are set to 0 just before and read just after:
+   flash attention exactly a launch per layer and step of the backbone and
+   of each ControlNet, plus 2 for the text encoder (``expected_flash``:
+   sd3.5-large 154, 230, 306; flux-schnell 230, 342, and 454 for int8
+   cn2), and no other kernel; the image (1, 1024, 1024, 3), finite, in
+   [-1, 1], and within ``KERNEL_VS_PLAIN_REL`` of the same request through
+   the plain attention route, which launches no kernel at all; printed:
+   wall with the weights on the card,
+   peak memory.  Then the mixed LoRA batch (``table2_lora``: tenant A,
+   tenant B and a basic request in one multilora segment, the grouped
+   kernel exactly 4 times a layer a step, 608 and 912; each image against
+   its solo run, a tenant's folded within ``TENANT_FOLD_REL``, the basic
+   one within 1e-4, and tenant A without its adapter above the gate; one
+   direct grouped text-encoder call against the folded encoder).  Then
+   under ``REPRO_QUANT=int8`` (``set_quant_mode``, restored afterwards)
+   with the weights drawn and quantized at load (no bf16 tree kept): each
+   family's basic, cn1 and cn2, ``quant_matmul`` and ``quantize_rows``
+   exactly as ``quant_path`` reckons, each image within
+   ``INT8_VS_FP32_REL`` of its f32 image, and flux-schnell:cn2, which has
+   none, bit-identical to the same request with the plain versions in the
+   kernels' places, which launch neither kernel.  Each system is freed
+   before the next.
+5t. Each kernel at the shapes phase 4t gave it: flash attention where
+   phase 5 did not time it (f32 atol 2e-5), the grouped LoRA kernel at the
+   mixed batches' image-stream and text-encoder shapes (the path gate,
+   2e-5 * sqrt(K/64)), ``quant_matmul`` and ``quantize_rows`` bit for bit
+   and timed where they are not the SD3 path's (phase 5q times those);
+   timed as in phases 5, 5b and 5q.  One set (``checked_flash``) keeps the
+   flash shapes phases 5 and 5x have held and timed; each takes only the
+   shapes it adds.
+6t. Where the time goes on each family's cn1 request: served again on its
+   warm system under the profiler (inside 4t); flash attention, the f32
+   GEMMs and the convolutions by device time and share of busy time, and
+   the idle share.
+7t. Table 2's S2 replayed through the serving launcher (inside 4t, on
+   sd3.5-large's f32 weights): the first 8 requests of its
+   ``generate_trace`` through ``repro_torch.launch.serve.serve()`` with
+   ``REPRO_DONATE`` and ``REPRO_OVERLAP`` off, checked and printed as
+   phase 7l.
 4b. The LoRA path: sd3:lora:tenantA, sd3:lora:tenantB and sd3:basic served
    together at full width, 4 steps, on one card with the multilora
    scheduler and the passes of the JAX package's multi-tenant test
@@ -146,8 +185,8 @@ Phases (any failed check raises, and the script exits non-zero):
    relative error, 0, is printed).
 5q. ``quant_matmul`` at every shape the int8 path gave it (checked bit for
    bit first where phase 2 did not), timed as in phase 5 (one wrapper call,
-   host work included) and by the profiler (``device_ms``: its kernels'
-   device time alone) beside its plain version, the bound,
+   host work included) and the card's own time over 20 queued calls
+   (``queued_ms``) beside its plain version, the bound,
    ``torch._int_mm`` with the same epilogue (a yardstick the port never
    calls; null where its shape rules refuse) and the float32 product of
    the "off" route; ``quantize_rows`` at every (M, K) the path gave it,
@@ -366,7 +405,8 @@ Phases (any failed check raises, and the script exits non-zero):
    exit 0 with its ``OK`` lines; printed: the lines and each process's
    wall.
 
-The phases run in the order 1, 2, 3, 4, 5, 6, 4f (with 6f), 5f, 4q, 5q,
+The phases run in the order 1, 2, 3, 4, 5, 6, 4t (with 6t and 7t), 5t,
+4q, 5q,
 6q, 4b, 4c, 5b, 6b, 5c, 4n, 5n, 4nq, 6n, 7l, 5l, 7p, 7s, 5s, 8h, 8w, 8d,
 8s, 8z, 9w, 9h, 10
 (whose processes start before phase 1).  Before the last two lines, one
@@ -376,8 +416,10 @@ Pallas kernel) among them: its ``launches`` are the count from its own
 path's run (the single-adapter LoRA kernel has no serving path: 0;
 ``rglru_scan``'s are phase 8h's prefill; ``launches_by_path`` gives each
 path's count where a kernel has several, the sharded plane's under
-``sharded``, phase 4f's under ``flux-schnell:basic`` and
-``sd3.5-large:basic``, whisper-tiny's prefill and train run among flash
+``sharded``, phase 4t's under each request's label (``sd3.5-large:cn1``,
+``flux-schnell:cn2 int8``, ``flux-schnell mixed LoRA``, ...) and S2's
+trace under ``S2 trace, flags off``, whisper-tiny's prefill and train run
+among flash
 attention's; the backward kernels' are phase 9's 3-step runs), and each
 leads with the largest shape its path launched (``rglru_scan`` with its
 served shape), the others under ``other_shapes``.  The line before the last
@@ -417,6 +459,9 @@ D128_KERNELS = ("flash_split128_kernel", "flash_wgmma128_kernel")
 # D = 1024 split-KV grid and its merge
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_mma64_kernel", *D128_KERNELS,
                  "flash_splitkv_kernel", "flash_merge_kernel")
+# of those, the one each call of the wrapper launches once, whatever its route
+FLASH_MAIN_KERNELS = ("flash_fwd_kernel", "flash_mma64_kernel",
+                      "flash_wgmma128_kernel", "flash_splitkv_kernel")
 # every CUDA kernel the LoRA wrappers launch: the x @ A pre-pass and the GEMM
 LORA_KERNELS = ("lora_xa_kernel", "lora_matmul_kernel")
 # every CUDA kernel the quant_matmul wrapper launches: the GEMM and, for a
@@ -438,11 +483,20 @@ D128_BANDS = (((3, 500, 500, 128), True, None), ((2, 300, 300, 128), True, 37),
               ((2, 333, 100, 128), False, None),
               # query blocks past Sk + window see no key tile at all
               ((1, 400, 150, 128), True, 1))
-# phase 4f: Table 2's other families at published width, one basic request
-# each at STEPS steps (flux-schnell's published count is 4): the family and
-# the REAL config it takes (flux-schnell shares flux-dev's backbone)
-FAMILY_RUNS = (("flux-schnell", "flux-dev"), ("sd3.5-large", "sd3.5-large"))
-# their joint attention (one request: Flux without CFG rows, SD3.5-Large
+# phase 4t: Table 2's SD3.5-Large (S2) and Flux (S3) workflows at published
+# width, each request at STEPS steps (flux-schnell's published count): the
+# family, the REAL config it takes (flux-schnell shares flux-dev's
+# backbone), its Table 2 setting, the workflows served in f32 and those
+# served under int8.
+# flux-schnell:cn2 is not served in f32: its bf16 weights and working
+# memory exceed one card (phase 4t prints the reckoning)
+TABLE2_RUNS = (("sd3.5-large", "sd3.5-large", "s2", ("basic", "cn1", "cn2"),
+                ("basic", "cn1", "cn2")),
+               ("flux-schnell", "flux-dev", "s3", ("basic", "cn1"),
+                ("basic", "cn1", "cn2")))
+# phase 7t: the setting of TABLE2_RUNS replayed through the launcher
+TABLE2_TRACE = "s2"
+# the basic requests' joint attention (Flux without CFG rows, SD3.5-Large
 # with) and Flux's text encoder (4 heads of 1024 over 512 tokens)
 FAMILY_SHAPES = ((24, 4608, 4608, 128), (76, 4429, 4429, 64),
                  (4, 512, 512, 1024))
@@ -504,9 +558,10 @@ INT8_VS_FP32_REL = 0.25
 # toy image, card against CPU, per mode (the CPU tests' served bounds:
 # int8 rounding flips move the int8 image by about 2e-2)
 TOY_QUANT_REL = {"int8": 2.5e-2, "fp8": 1e-4}
-# phase 7l: the serving launcher's arguments but the device (its defaults,
-# on one executor: every executor of one LocalBackend shares the one card)
-SERVE_ARGS = ["--setting", "s1", "--plane", "local", "--executors", "1",
+# phases 7l and 7t: the serving launcher's arguments but the setting and
+# the device (its defaults, on one executor: every executor of one
+# LocalBackend shares the one card)
+SERVE_ARGS = ["--plane", "local", "--executors", "1",
               "--rate", "1.0", "--duration", "120", "--cv", "2.0",
               "--slo-scale", "2.0"]
 # phase 7p: the process plane's executors for the basic and kill runs, each
@@ -645,20 +700,38 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps: int = 10) -> float:
-    """Mean device milliseconds of the CUDA kernels ``fn`` launches (the
-    profiler), without the wrapper's host work that a single call's event
-    time holds where the kernel is short."""
-    from torch.profiler import ProfilerActivity, profile
+def queued_ms(torch, fn, calls: int = 20) -> float:
+    """The card's own milliseconds a call of ``fn``: after 2 warm-ups, the
+    ``calls`` calls are queued behind a sleep kernel and timed by CUDA
+    events around them all, so none waits on the wrapper's host work (a
+    single call's event time holds it: ``cuda_ms``).  The sleep grows
+    until the host has queued every call before it ends; a wrapper that
+    waits on the card would never get there, and raises.
 
-    fn()
+    The profiler's per-call device time is not read: it loses kernel
+    records (on the H100, 2 or 3 of 10 or 20 launches in a session of its
+    own, and 12, then all 20, of 20 inside this script's run;
+    ``tools/device_time_check.py``), so a sum over the calls
+    under-counts."""
+    for _ in range(2):
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    cycles = 10**7                       # about 5 ms at the H100's clock
+    while cycles <= 10**10:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / reps / 1e3
+        end.record()
+        ahead = not start.query()        # the card still sleeps
+        end.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / calls
+        cycles *= 8
+    raise AssertionError("queued_ms: the host did not queue the calls "
+                         "ahead of the card")
 
 
 def bound(nbytes: float, flops: float, dtype_name: str) -> tuple:
@@ -731,6 +804,7 @@ def time_attention(torch, fa, shape, dtype, reps=10) -> dict:
     out = {
         "shape": "BH=%d,Sq=%d,Sk=%d,D=%d,%s" % (*shape, dname),
         "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v), reps),
+        "queued_ms": queued_ms(torch, lambda: fa.flash_attention(q, k, v)),
         "plain_ms": cuda_ms(torch, lambda: fa.attention_ref(q, k, v), reps),
         "library_ms": cuda_ms(
             torch, lambda: F.scaled_dot_product_attention(q, k, v), reps),
@@ -882,6 +956,7 @@ def time_lora(torch, lk, lref, spec, reps=10) -> tuple:
                                                grouped)
     return {"shape": label,
             "ms": cuda_ms(torch, kern, reps),
+            "queued_ms": queued_ms(torch, kern),
             "plain_ms": cuda_ms(torch, plain, reps),
             "library_ms": cuda_ms(torch, lib, reps),
             "library": LIBRARY if grouped else
@@ -974,7 +1049,7 @@ def time_rows(torch, qk, qref, shape, reps=10) -> dict:
     bound_ms, bound_by = bound(5.0 * m * k + 4.0 * m, 3.0 * m * k, "float32")
     return {"shape": "M=%d,K=%d,float32" % shape,
             "ms": cuda_ms(torch, lambda: qk.quantize_rows(x), reps),
-            "device_ms": device_ms(torch, lambda: qk.quantize_rows(x)),
+            "queued_ms": queued_ms(torch, lambda: qk.quantize_rows(x)),
             "plain_ms": cuda_ms(torch, lambda: qref.quantize_rows_ref(x), reps),
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -1023,7 +1098,7 @@ def time_quant(torch, qk, qref, shape, reps=10) -> dict:
         library_ms = None
     return {"shape": "M=%d,K=%d,N=%d,int8" % shape,
             "ms": cuda_ms(torch, lambda: qk.quant_matmul(xq, wq, xs, ws), reps),
-            "device_ms": device_ms(torch, lambda: qk.quant_matmul(xq, wq, xs, ws)),
+            "queued_ms": queued_ms(torch, lambda: qk.quant_matmul(xq, wq, xs, ws)),
             "plain_ms": cuda_ms(
                 torch, lambda: qref.quant_matmul_ref(xq, wq, xs, ws), reps),
             "library_ms": library_ms, "library": QUANT_LIBRARY,
@@ -1031,14 +1106,15 @@ def time_quant(torch, qk, qref, shape, reps=10) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def quant_path(dispatch_log, cfg) -> tuple:
+def quant_path(dispatch_log, family) -> tuple:
     """int8 products the served dispatches must have made, and their (M, K,
     N): 7 per stream and layer of each backbone and ControlNet forward (ada
     on the rows, q/k/v/o, w1 and w2 on every token row of the stream; the
-    backbone on the CFG-doubled rows, a ControlNet on the latent rows, and
-    its zero_proj and embeddings unquantized), 6 per layer of each
-    text-encoder batch (2 layers)."""
-    expected, shapes = 0, set()
+    backbone on the CFG-doubled rows where the family uses CFG, a
+    ControlNet on the latent rows, and its zero_proj and embeddings
+    unquantized), 6 per layer of each text-encoder batch (2 layers)."""
+    cfg, expected, shapes = family.toy, 0, set()
+    cfg_rows = 2 if family.uses_cfg else 1
     d, ff, td = cfg.d_model, cfg.d_ff, cfg.text_dim
 
     def forward(rows):
@@ -1053,7 +1129,7 @@ def quant_path(dispatch_log, cfg) -> tuple:
                    else 1)
             cns = n_controlnets(disp.model_id)
             expected += fwd * (cfg.n_layers + cns * cn_layers(cfg)) * 2 * 7
-            forward(2 * n)                              # one-pass CFG
+            forward(cfg_rows * n)                       # one-pass CFG
             if cns:
                 forward(n)
         elif disp.model_id.startswith("controlnet"):
@@ -1119,6 +1195,7 @@ def time_rglru(torch, rk, rref, shape, reps=10) -> dict:
     bound_ms, bound_by = bound(12.0 * b * t * d, 6.0 * b * t * d, "float32")
     return {"shape": "B=%d,T=%d,D=%d,float32" % shape,
             "ms": cuda_ms(torch, lambda: rk.rglru_scan(a, x), reps),
+            "queued_ms": queued_ms(torch, lambda: rk.rglru_scan(a, x)),
             "plain_ms": cuda_ms(torch, lambda: rref.rglru_ref(a, x), reps),
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -1129,10 +1206,16 @@ def profile_path(torch, system, subs, card, label, kernels) -> dict:
     """Serve ``subs`` again on the warm system under the profiler; device
     time by kernel, the named kernels' time and shares and the idle share
     of the window.  ``kernels`` maps a name to the substrings of the CUDA
-    kernel names it sums; a kernel counts for the first name it matches."""
+    kernel names it sums; a kernel counts for the first name it matches.
+    The profiler can lose kernel records, so the flash-attention records
+    are held against the wrapper's launches in the window: where any is
+    missing, every device time of the profile is "not measured"."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels.flash_attention import kernel as fa
+
     torch.cuda.synchronize()
+    launched = fa.flash_attention.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         reqs = [system.submit(name, inputs=dict(inp), arrival=0.0, steps=STEPS)
@@ -1140,6 +1223,7 @@ def profile_path(torch, system, subs, card, label, kernels) -> dict:
         system.run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = fa.flash_attention.launches - launched
     if any(r.status != "done" for r in reqs):
         raise AssertionError(f"profiled {label} requests did not finish")
     rows = []
@@ -1148,12 +1232,20 @@ def profile_path(torch, system, subs, card, label, kernels) -> dict:
         if e.device_type.name == "CUDA" and dev_us > 0:
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
+    recorded = sum(r[1] for r in rows
+                   if any(key in r[2] for key in FLASH_MAIN_KERNELS))
+    if recorded != launched:
+        log(f"[profile] {label}: {recorded} flash-attention kernel records "
+            f"of {launched} launches; the profile's device times are not "
+            f"measured  [{card}]")
+        rows = []
     busy_ms = sum(r[0] for r in rows)
     out = {"window": f"{label}: {len(subs)} requests x {STEPS} steps, "
                      f"weights loaded",
            "wall_ms": wall_ms,
            "device_busy_ms": busy_ms if rows else "not measured",
-           "idle_share": 1 - busy_ms / wall_ms if rows else "not measured"}
+           "idle_share": 1 - busy_ms / wall_ms if rows else "not measured",
+           "flash_records": f"{recorded} of {launched} launches"}
     # each kernel counts once: for the first (name, substring) it matches
     owner = {r[2]: next(((name, key) for name, keys in kernels.items()
                          for key in keys if key in r[2]), None) for r in rows}
@@ -1163,7 +1255,7 @@ def profile_path(torch, system, subs, card, label, kernels) -> dict:
         ms = sum(by_key.values())
         out[f"{name}_ms"] = ms if rows else "not measured"
         out[f"{name}_share_of_busy"] = ms / busy_ms if rows else "not measured"
-        if len(keys) > 1:
+        if len(keys) > 1 and rows:
             out[f"{name}_ms_by_kernel"] = by_key
     out["top_kernels"] = [{"ms": ms, "count": n, "name": name[:90]}
                           for ms, n, name in rows[:8]]
@@ -1181,21 +1273,22 @@ def rel(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def controlnet_weights(family) -> dict:
-    """Both ControlNets' trees, drawn on the card from their model ids'
-    seeds (in the "off" quant mode: unquantized), each with a nonzero
-    ``cond_embed`` (normal x 1/sqrt(fan-in), from a fixed seed).  The JAX
-    package's ``cond_embed`` is all zeros, with which the reference image
-    could not change the served image.  Test weights only."""
+def controlnet_weights(family, variants=(1, 2), device="cuda") -> dict:
+    """The ControlNets' trees, drawn on ``device`` from their model ids'
+    seeds through their own loads (so in the active quant mode's form),
+    each with a nonzero ``cond_embed`` (normal x 1/sqrt(fan-in), from a
+    fixed seed).  The JAX package's ``cond_embed`` is all zeros, with which
+    the reference image could not change the served image.  Test weights
+    only."""
     import torch
     from repro_torch.diffusion import ControlNet
 
     out = {}
-    for variant in (1, 2):
-        params = ControlNet(family, variant).load("cuda")["params"]
+    for variant in variants:
+        params = ControlNet(family, variant).load(device)["params"]
         ce = params["cond_embed"]
-        gen = torch.Generator(device="cuda").manual_seed(1000 + variant)
-        draw = torch.randn(tuple(ce.shape), generator=gen, device="cuda")
+        gen = torch.Generator(device=device).manual_seed(1000 + variant)
+        draw = torch.randn(tuple(ce.shape), generator=gen, device=device)
         out[variant] = {**params,
                         "cond_embed": (draw / math.sqrt(ce.shape[0])).to(ce.dtype)}
     return out
@@ -1210,22 +1303,32 @@ def ref_image(torch, seed, size=1024):
 def cn_system(family, cn_weights):
     """Table 2's S1 (sd3:basic, sd3:cn1, sd3:cn2 sharing one ModelSet) at
     the family's width on one card, the ControlNets on ``cn_weights``."""
-    from repro_torch.core import LocalBackend, ServingSystem
-    from repro_torch.diffusion import ModelSet, table2_setting
+    from repro_torch.diffusion import ModelSet
 
     ms = ModelSet(family)
     ms.cn1.weights, ms.cn2.weights = cn_weights[1], cn_weights[2]
-    system = ServingSystem(n_executors=1, backend=LocalBackend(device="cuda"))
-    for wf in table2_setting("s1", model_sets={"sd3": ms}).values():
+    return family_system(ms, "s1")
+
+
+def family_system(ms, setting, device="cuda"):
+    """One executor on ``device`` serving Table 2's ``setting`` (the basic,
+    +C.N.1 and +C.N.2 workflows of ``ms``'s family) on ``ms``."""
+    from repro_torch.core import LocalBackend, ServingSystem
+    from repro_torch.diffusion import table2_setting
+
+    system = ServingSystem(n_executors=1, backend=LocalBackend(device=device))
+    for wf in table2_setting(setting,
+                             model_sets={ms.family.name: ms}).values():
         system.register(wf)
     return system
 
 
 def lora_system(ms, device, multilora=True, backend=None):
     """The JAX package's multi-tenant serving setup (its test's
-    ``_build_system``) on one executor: sd3:basic and two LoRA tenants, on
-    ``backend`` (by default ``LocalBackend(device)``).  Returns the system
-    and its adapter models by id."""
+    ``_build_system``) on one executor: ``<family>:basic`` and two LoRA
+    tenants of ``ms``'s family, on ``backend`` (by default
+    ``LocalBackend(device)``).  Returns the system and its adapter models
+    by id."""
     from repro_torch.core import (
         GraphCompiler,
         InlineTrivialPass,
@@ -1246,9 +1349,10 @@ def lora_system(ms, device, multilora=True, backend=None):
         [InlineTrivialPass(), SegmentFusionPass(), JitCompilePass()]))
     system.coordinator.scheduler = Scheduler(
         system.profiles, use_declared_max_batch=True, multilora=multilora)
-    wfs = [make_basic_workflow("sd3", ms),
-           make_lora_workflow("sd3", "tenantA", ms),
-           make_lora_workflow("sd3", "tenantB", ms)]
+    name = ms.family.name
+    wfs = [make_basic_workflow(name, ms),
+           make_lora_workflow(name, "tenantA", ms),
+           make_lora_workflow(name, "tenantB", ms)]
     for wf in wfs:
         system.register(wf)
     adapters = {p.model_id: p for wf in wfs
@@ -1321,105 +1425,370 @@ def s1_model_set(family, cn_weights, device="cuda"):
     weights drawn once, on ``device`` (the text encoder, backbone and VAE
     from their model ids' seeds; the ControlNets ``cn_weights``): systems
     built on it load by reference and draw nothing."""
-    from repro_torch.diffusion import ModelSet
-
-    ms = ModelSet(family)
-    ms.text_enc.weights = ms.text_enc.load(device)["params"]
-    ms.backbone.weights = ms.backbone.load(device)["params"]
-    ms.vae_dec.weights = ms.vae_enc.weights = ms.vae_dec.load(device)["params"]
+    ms = draw_model_set(family, 0, device)
     ms.cn1.weights, ms.cn2.weights = cn_weights[1], cn_weights[2]
     return ms
 
 
-def family_phase(torch, card, counters, device="cuda", real=None) -> dict:
-    """Phase 4f (the docstring's 4f and 6f): one ``<family>:basic`` request
-    of each of ``FAMILY_RUNS`` at the family's REAL width (``real`` maps
-    the configs' names, ``REAL`` by default), each on a fresh one-executor
-    ``ServingSystem`` freed before the next.  Returns each run's printed
-    numbers under ``runs`` and, under ``flash_shapes``, each flash shape
-    its dispatches gave with the family that gave it."""
-    from repro_torch.core import LocalBackend, ServingSystem
-    from repro_torch.diffusion import FAMILIES, REAL, ModelSet, make_basic_workflow
-    from repro_torch.nn.layers import set_flash_attention
+def tree_gib(tree) -> float:
+    """GiB held by the tensor leaves of a parameter tree."""
+    return sum(t.numel() * t.element_size() for t in _leaves(tree)
+               if hasattr(t, "element_size")) / 2**30
 
-    flash = counters[0]
+
+def draw_model_set(family, n_cns, device="cuda"):
+    """A ``ModelSet`` of ``family`` whose models' weights are drawn once on
+    ``device`` through the models' own loads, so in the active quant mode's
+    form with no bf16 tree kept beside a quantized one, and the first
+    ``n_cns`` ControlNets (``controlnet_weights``): every workflow's fused
+    segment built on it loads these by reference and draws nothing."""
+    from repro_torch.diffusion import ModelSet
+
+    ms = ModelSet(family)
+    for model in (ms.text_enc, ms.backbone, ms.vae_dec):
+        model.weights = model.load(device)["params"]
+    ms.vae_enc.weights = ms.vae_dec.weights
+    for variant, params in controlnet_weights(
+            family, range(1, n_cns + 1), device).items():
+        getattr(ms, f"cn{variant}").weights = params
+    return ms
+
+
+def table2_request(torch, system, family, wf, counters, card, quant=False):
+    """One ``<family>:<wf>`` request (``REQUESTS[0]``; a ControlNet workflow
+    with the reference image of ``REF_SEEDS[0]``) on ``system``, the kernel
+    counts set to 0 just before and read just after.  Flash attention must
+    have launched exactly as ``expected_flash`` reckons (a layer's launch a
+    step for the backbone and each ControlNet, 2 for the text encoder), and
+    under int8 ``quant_matmul`` and ``quantize_rows`` exactly as
+    ``quant_path`` reckons; no other kernel.  Returns the printed record,
+    the image, the submission and the shapes flash attention and
+    ``quant_matmul`` were given."""
+    cfg, name = family.toy, f"{family.name}:{wf}"
+    inp = dict(REQUESTS[0])
+    if wf != "basic":
+        inp["ref_image"] = ref_image(torch, REF_SEEDS[0], 8 * cfg.latent_size)
+    sub = (name, inp)
+    start = len(system.coordinator.dispatch_log)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    req = serve(system, [sub], STEPS)[0]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts(counters)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    dispatches = system.coordinator.dispatch_log[start:]
+    label = name + (" int8" if quant else "")
+    img = image_of(system, req)
+    check_image(torch, img, card, label)
+    want, flash_shapes = expected_flash(dispatches, family)
+    want = {"flash_attention": want}
+    n_cns = 0 if wf == "basic" else int(wf[2:])
+    layers = cfg.n_layers + n_cns * cn_layers(cfg)
+    if want["flash_attention"] != layers * STEPS + 2:
+        raise AssertionError(f"{label}: the dispatches reckon "
+                             f"{want['flash_attention']} flash launches")
+    quant_shapes = set()
+    if quant:
+        want["quant_matmul"], quant_shapes = quant_path(dispatches, family)
+        want["quantize_rows"] = want["quant_matmul"]
+    if {k: n for k, n in launches.items() if n} != want:
+        raise AssertionError(
+            f"{label}: launches {launches}, expected {want}; dispatches "
+            f"{[(d.model_id, len(d.nodes), d.segment_steps) for d in dispatches]}")
+    record = {"wall_s": wall_s, "peak_gib": peak_gib, "launches": want,
+              "dispatches": [(d.model_id, len(d.nodes), d.segment_steps)
+                             for d in dispatches]}
+    log(f"[table2] {label} at d {cfg.d_model}, {cfg.n_layers} layers (a "
+        f"ControlNet {cn_layers(cfg)}), {cfg.n_heads} heads of "
+        f"{cfg.head_dim}, {STEPS} steps: done, wall {wall_s:.2f} s (weights "
+        f"on the card), peak memory {peak_gib:.2f} GiB, launches {want} "
+        f"(exact), flash at {sorted(flash_shapes)}; image range "
+        f"[{float(img.min()):.3f}, {float(img.max()):.3f}]  [{card}]")
+    return record, img, sub, flash_shapes, quant_shapes
+
+
+def table2_lora(torch, ms, card, counters, device="cuda"):
+    """Phase 4t's mixed LoRA batch of ``ms``'s family: tenant A, tenant B
+    and a basic request (``MIXED``'s inputs) in one multilora segment on
+    the JAX package's multi-tenant setup.  The grouped kernel exactly 4
+    times a layer a step, flash attention as ``expected_flash`` reckons,
+    nothing else; the tenants' images differ; each image against its solo
+    run (the basic request within 1e-4, a tenant folded within
+    ``TENANT_FOLD_REL``), and tenant A's inputs without an adapter above
+    that gate; then one direct grouped text-encoder call (one launch)
+    against the folded encoder.  Returns the record and the grouped
+    shapes, as ``time_lora`` specs by label."""
+    family, cfg = ms.family, ms.family.toy
+    name = family.name
+    subs = [(f"{name}:{wf.split(':', 1)[1]}", inp) for wf, inp in MIXED]
+    system, adapters = lora_system(ms, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    reqs = serve(system, subs, STEPS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts(counters)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    dispatches = list(system.coordinator.dispatch_log)
+    segs = [d for d in dispatches
+            if d.multilora and d.model_id.startswith("segment:")]
+    want = {"lora_matmul_grouped": TARGETS * cfg.n_layers * STEPS,
+            "flash_attention": expected_flash(dispatches, family)[0]}
+    if (not segs or sum(d.segment_steps for d in segs) != STEPS
+            or any(len(d.nodes) != 3 for d in segs)
+            or {k: n for k, n in launches.items() if n} != want):
+        raise AssertionError(
+            f"{name} mixed LoRA batch: launches {launches}, expected {want}; "
+            f"dispatches {[(d.model_id, len(d.nodes), d.segment_steps, d.multilora) for d in dispatches]}")
+    images = [image_of(system, r) for r in reqs]
+    for (label, _), img in zip(subs, images):
+        check_image(torch, img, card, label)
+    ab = float((images[0] - images[1]).abs().max())
+    if not ab > 1e-6:
+        raise AssertionError(f"{name}: tenants A and B gave the same image")
+    log(f"[table2-lora] {name}: 3 requests (2 LoRA tenants + basic) in one "
+        f"multilora segment, {STEPS} steps: done, wall {wall_s:.2f} s "
+        f"(adapters drawn on the card), peak memory {peak_gib:.2f} GiB, "
+        f"launches {want} (exact)  [{card}]")
+    solo = {}
+    for (label, inp), img in zip(subs, images):
+        other = image_of(system, serve(system, [(label, inp)], STEPS)[0])
+        solo[label] = rel(img, other)
+        gate = 1e-4 if label.endswith(":basic") else TENANT_FOLD_REL
+        if not solo[label] < gate:
+            raise AssertionError(f"{label} grouped vs solo: rel err "
+                                 f"{solo[label]} >= {gate}")
+        log(f"[table2-lora] {label} grouped vs its solo run"
+            f"{'' if gate == 1e-4 else ' (adapter folded)'}: rel err "
+            f"{solo[label]:.3e} < {gate}")
+    control = rel(images[0], image_of(system, serve(
+        system, [(f"{name}:basic", subs[0][1])], STEPS)[0]))
+    if not control > TENANT_FOLD_REL:
+        raise AssertionError(f"{name}: tenant A without its adapter: rel "
+                             f"err {control} <= {TENANT_FOLD_REL}")
+    log(f"[table2-lora] control, tenant A's inputs without an adapter: rel "
+        f"err {control:.3e} > {TENANT_FOLD_REL}")
+    # the text encoder's grouped wo, one direct call (the served batch's
+    # text encoder carries no patch)
+    backend = system.coordinator.backend
+    enc = ms.text_enc
+    enc_comps, _ = backend.ensure_loaded(enc)
+    ads = [adapters[f"lora:tenantA:{name}"], adapters[f"lora:tenantB:{name}"]]
+    pcs = {p.model_id: backend.adapter_pool.get(p)[0] for p in ads}
+    batch = [{"prompt": inp["prompt"], "_patches": ps}
+             for (_, inp), ps in zip(subs, ([ads[0]], [ads[1]], []))]
+    zero_counts(counters)
+    got = enc.execute_batch_multilora(enc_comps, batch, pcs)
+    torch.cuda.synchronize()
+    text = read_counts(counters)
+    if got is None or {k: n for k, n in text.items() if n} != {
+            "lora_matmul_grouped": 1, "flash_attention": 2}:
+        raise AssertionError(f"{name} text encoder grouped call: {text}")
+    for kw, out in zip(batch, got):
+        comps = enc_comps
+        for p in kw["_patches"]:
+            comps = enc.fold_patches(enc_comps, [p], [pcs[p.model_id]])
+        e = rel(out["prompt_embeds"],
+                enc.execute(comps, prompt=kw["prompt"])["prompt_embeds"])
+        if not e < 1e-4:
+            raise AssertionError(f"{name} text encoder grouped vs folded: {e}")
+    log(f"[table2-lora] {name} text encoder: one grouped launch (and 2 "
+        f"flash) at ({3 * cfg.text_tokens}, {cfg.text_dim}, "
+        f"{cfg.text_dim}), each row within 1e-4 of the folded encoder")
+    # the image stream's rows: each request's, then the CFG-null copies
+    groups = [0, 1, -1] * (2 if family.uses_cfg else 1)
+    f32, bf16 = torch.float32, torch.bfloat16
+    specs = {f"{name} mixed LoRA, image stream":
+             (True, len(groups) * cfg.image_tokens, cfg.d_model, cfg.d_model,
+              2, 8, (f32, bf16, bf16), groups),
+             f"{name} mixed LoRA, text encoder":
+             (True, 3 * cfg.text_tokens, cfg.text_dim, cfg.text_dim, 2, 8,
+              (f32,) * 3, [0, 1, -1])}
+    record = {"wall_s": wall_s, "peak_gib": peak_gib, "launches": want,
+              "text_encoder_launches": 1, "solo_rel": solo,
+              "control_rel": control}
+    del system, adapters, reqs, images, backend, enc_comps, pcs, got
+    return record, specs, expected_flash(dispatches, family)[1]
+
+
+def table2_phase(torch, card, counters, device="cuda", real=None) -> dict:
+    """Phase 4t (the docstring's 4t, 6t and 7t): for each of
+    ``TABLE2_RUNS``, the family at its REAL width (``real`` maps the
+    configs' names, ``REAL`` by default): the f32 requests, each against
+    the plain attention route, the mixed LoRA batch, for S2 the trace
+    through the launcher, then the int8 requests, each against its f32
+    image (flux-schnell:cn2, which has none, against the plain int8
+    route, bit for bit); each system freed before the next.  Returns each
+    run's record under ``runs`` and the shapes each kernel was given on
+    which path (``flash``, ``quant``, ``lora``)."""
+    from repro_torch.diffusion import FAMILIES, REAL
+    from repro_torch.kernels.quant_matmul import ops as qops
+    from repro_torch.kernels.quant_matmul import ref as qref
+    from repro_torch.nn.layers import set_flash_attention, set_quant_mode
+
     real = real or REAL
-    runs, flash_shapes = {}, {}
-    for name, real_name in FAMILY_RUNS:
+    out = {"runs": {}, "flash": {}, "quant": {}, "lora": {}}
+    for name, real_name, setting, f32_wfs, int8_wfs in TABLE2_RUNS:
         family = dataclasses.replace(FAMILIES[name], toy=real[real_name])
         cfg = family.toy
-        system = ServingSystem(n_executors=1, backend=LocalBackend(device=device))
-        system.register(make_basic_workflow(name, ModelSet(family)))
-        subs = [(f"{name}:basic", REQUESTS[0])]
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        for c in counters:
-            c.launches = 0
+        n_cns = max(int(wf[2:]) for wf in f32_wfs if wf != "basic")
         t0 = time.perf_counter()
-        req = serve(system, subs, STEPS)[0]
+        torch.cuda.reset_peak_memory_stats()
+        ms = draw_model_set(family, n_cns, device)
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        launches = {c.__name__: c.launches for c in counters}
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        dispatches = system.coordinator.dispatch_log
-        expected, shapes = expected_flash(dispatches, family)
-        flash_shapes.update({shape: name for shape in shapes})
-        img = image_of(system, req)
-        check_image(torch, img, card, f"{name}:basic")
-        others = sum(n for k, n in launches.items() if k != flash.__name__)
-        # 24 heads of 128 without CFG rows, or 38 of 64 with them, per layer
-        # and step, and the text encoder's two layers
-        if (launches[flash.__name__] != expected
-                or expected != cfg.n_layers * STEPS + 2 or others):
-            raise AssertionError(
-                f"{name}: flash_attention launched "
-                f"{launches[flash.__name__]} times, expected {expected} "
-                f"({cfg.n_layers} layers x {STEPS} steps + 2); launches "
-                f"{launches}; dispatches "
-                f"{[(d.model_id, len(d.nodes), d.segment_steps) for d in dispatches]}")
-        log(f"[family] {name}:basic at REAL[{real_name!r}] (d {cfg.d_model}, "
-            f"{cfg.n_layers} layers, {cfg.n_heads} heads of {cfg.head_dim}, "
-            f"{cfg.tokens} tokens, CFG {family.uses_cfg}), {STEPS} steps: "
-            f"wall {wall_s:.2f} s (weights drawn on the card included), "
-            f"peak memory {peak_gib:.2f} GiB, flash_attention launches "
-            f"{launches[flash.__name__]} (expected {expected}) at "
-            f"{sorted(shapes)}; image {tuple(img.shape)} range "
-            f"[{float(img.min()):.3f}, {float(img.max()):.3f}]  [{card}]")
-        # the same request through the plain attention route
-        prev = set_flash_attention(False)
-        try:
-            before = flash.launches
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            plain_req = serve(system, subs, STEPS)[0]
-            torch.cuda.synchronize()
-            plain_s = time.perf_counter() - t0
-            if flash.launches != before:
-                raise AssertionError(f"{name}: the plain attention route "
-                                     f"launched the flash-attention kernel")
-        finally:
-            set_flash_attention(prev)
-        plain_img = image_of(system, plain_req)
-        e = rel(img, plain_img)
-        if not e < KERNEL_VS_PLAIN_REL:
-            raise AssertionError(f"{name}: image through the kernel vs the "
-                                 f"plain attention route: rel err {e}")
-        log(f"[family] {name}: image through the kernel vs the plain "
-            f"attention route rel err {e:.3e} < {KERNEL_VS_PLAIN_REL}, "
-            f"max|diff| {float((img - plain_img).abs().max()):.3e}; the plain "
-            f"route served it in {plain_s:.2f} s (weights loaded)  [{card}]")
-        del plain_req, plain_img, img, req
-        # 6f. where the time goes: the request again on the warm system
-        prof = profile_path(torch, system, subs, card, f"{name}:basic",
-                            {"flash_attention": FLASH_KERNELS,
-                             "f32_gemms": GEMM_KERNELS})
-        runs[name] = {"wall_s": wall_s, "plain_route_s": plain_s,
-                      "peak_gib": peak_gib,
-                      "flash_launches": launches[flash.__name__],
-                      "kernel_vs_plain_rel": e, "profile": prof}
-        del system, dispatches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[table2] {name} at REAL[{real_name!r}], f32: weights drawn in "
+            f"{time.perf_counter() - t0:.2f} s, peak {peak:.2f} GiB: backbone "
+            f"{tree_gib(ms.backbone.weights):.2f} GiB, "
+            + ", ".join(f"cn{v} {tree_gib(getattr(ms, f'cn{v}').weights):.2f}"
+                        f" GiB" for v in range(1, n_cns + 1)) + f"  [{card}]")
+        weights_gib = {"backbone": tree_gib(ms.backbone.weights),
+                       "controlnet": tree_gib(ms.cn1.weights)}
+        system = family_system(ms, setting, device)
+        images = {}
+        for wf in f32_wfs:
+            rec, img, sub, fshapes, _ = table2_request(
+                torch, system, family, wf, counters, card)
+            label = sub[0]
+            for shape in fshapes:
+                out["flash"].setdefault(shape, label)
+            prev = set_flash_attention(False)
+            try:
+                before = read_counts(counters)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                plain = image_of(system, serve(system, [sub], STEPS)[0])
+                torch.cuda.synchronize()
+                rec["plain_route_s"] = time.perf_counter() - t0
+                moved = launched_since(counters, before)
+                if moved:
+                    raise AssertionError(f"{label}: the plain attention "
+                                         f"route launched kernels {moved}")
+            finally:
+                set_flash_attention(prev)
+            rec["kernel_vs_plain_rel"] = e = rel(img, plain)
+            if not e < KERNEL_VS_PLAIN_REL:
+                raise AssertionError(f"{label}: image through the kernel vs "
+                                     f"the plain attention route: {e}")
+            log(f"[table2] {label}: image through the kernel vs the plain "
+                f"attention route rel err {e:.3e} < {KERNEL_VS_PLAIN_REL}; "
+                f"the plain route served it in {rec['plain_route_s']:.2f} s")
+            images[wf] = img.cpu()
+            out["runs"][label] = rec
+            del img, plain
+            if wf == "cn1":
+                # 6t. where the time goes: the request again, warm
+                rec["profile"] = profile_path(
+                    torch, system, [sub], card, label,
+                    {"flash_attention": FLASH_KERNELS, "convs": CONV_KERNELS,
+                     "f32_gemms": GEMM_KERNELS})
+        if "cn2" not in f32_wfs:
+            peak = out["runs"][f"{name}:cn1"]["peak_gib"]
+            work = peak - weights_gib["backbone"] - weights_gib["controlnet"]
+            stack = cfg.n_layers * cfg.image_tokens * cfg.d_model * 4 / 2**30
+            need = (weights_gib["backbone"] + 2 * weights_gib["controlnet"]
+                    + work + stack)
+            total = torch.cuda.get_device_properties(0).total_memory / 2**30
+            cost = ms.cn1.cost().param_bytes / 2**30
+            out["runs"][f"{name}:cn2 f32 reckoning"] = {
+                "weights_gib": weights_gib["backbone"]
+                + 2 * weights_gib["controlnet"], "cn1_working_gib": work,
+                "residual_stack_gib": stack, "need_gib": need,
+                "card_gib": total, "cost_model_controlnet_gib": cost}
+            log(f"[table2] {name}:cn2 in f32 is not served on one card: "
+                f"backbone {weights_gib['backbone']:.2f} GiB + 2 ControlNets x "
+                f"{weights_gib['controlnet']:.2f} GiB of bf16 weights, plus "
+                f"cn1's measured working memory {work:.2f} GiB (its peak "
+                f"{peak:.2f} less its weights) and a second residual stack "
+                f"{stack:.2f} GiB: {need:.2f} GiB against the card's "
+                f"{total:.2f} GiB (the cost model prices a ControlNet at "
+                f"{cost:.2f} GiB)  [{card}]")
+        del system
         free(torch)
-    return {"runs": runs, "flash_shapes": flash_shapes}
+        if name == "flux-schnell":     # the LoRA batch needs no ControlNet
+            ms.cn1.weights = ms.cn2.weights = None
+            free(torch)
+        rec, specs, fshapes = table2_lora(torch, ms, card, counters, device)
+        out["runs"][f"{name} mixed LoRA"] = rec
+        out["lora"].update(specs)
+        for shape in fshapes:
+            out["flash"].setdefault(shape, f"{name} mixed LoRA")
+        free(torch)
+        if setting == TABLE2_TRACE:
+            # 7t. the setting's trace through the serving launcher
+            t_shapes, t_flash = trace_phase(
+                torch, family, None, card, counters, device,
+                setting=setting, flag_runs=(False,), ms=ms)
+            out["runs"][f"{setting} trace"] = {"flash_launches": t_flash[0]}
+            for shape in t_shapes:
+                out["flash"].setdefault(shape, f"{setting} trace")
+        del ms
+        free(torch)
+
+        prev_mode = set_quant_mode("int8")
+        try:
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            ms = draw_model_set(family, max(int(wf[2:]) for wf in int8_wfs
+                                            if wf != "basic"), device)
+            torch.cuda.synchronize()
+            log(f"[table2] {name} int8: weights drawn and quantized at load "
+                f"in {time.perf_counter() - t0:.2f} s, peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB: backbone "
+                f"{tree_gib(ms.backbone.weights):.2f} GiB, cn1 "
+                f"{tree_gib(ms.cn1.weights):.2f} GiB  [{card}]")
+            system = family_system(ms, setting, device)
+            for wf in int8_wfs:
+                rec, img, sub, fshapes, qshapes = table2_request(
+                    torch, system, family, wf, counters, card, quant=True)
+                label = sub[0] + " int8"
+                for shape in fshapes:
+                    out["flash"].setdefault(shape, label)
+                for shape in qshapes:
+                    out["quant"].setdefault(shape, label)
+                if wf in images:
+                    rec["int8_vs_fp32_rel"] = e = rel(img, images[wf])
+                    if not e < INT8_VS_FP32_REL:
+                        raise AssertionError(f"{label} vs f32: rel err {e}")
+                    log(f"[table2] {label} vs the f32 image: rel err "
+                        f"{e:.3e} < {INT8_VS_FP32_REL}")
+                else:
+                    # no f32 image: the plain versions in the kernels' places
+                    real_mm, real_rows = qops.quant_matmul, qops._quantize_rows
+                    qops.quant_matmul = qref.quant_matmul_ref
+                    qops._quantize_rows = qref.quantize_rows_ref
+                    try:
+                        before = read_counts(counters)
+                        plain = image_of(system, serve(system, [sub], STEPS)[0])
+                        moved = {k: v for k, v in launched_since(
+                            counters, before).items()
+                            if k in ("quant_matmul", "quantize_rows")}
+                        if moved:
+                            raise AssertionError(
+                                f"{label}: the plain int8 route launched "
+                                f"kernels {moved}")
+                    finally:
+                        qops.quant_matmul, qops._quantize_rows = real_mm, real_rows
+                    if not torch.equal(img, plain):
+                        raise AssertionError(f"{label}: kernels vs the plain "
+                                             f"int8 route not bit-identical")
+                    rec["bit_identical_to_plain_int8"] = True
+                    log(f"[table2] {label} (no f32 image: f32 {name}:{wf} is "
+                        f"not served on one card) vs the plain int8 route: "
+                        f"bit-identical")
+                    del plain
+                out["runs"][label] = rec
+                del img
+            del system, ms
+        finally:
+            set_quant_mode(prev_mode)
+        free(torch)
+    return out
 
 
 def replay_trace(torch, ms, flags, argv, counters):
@@ -1452,7 +1821,7 @@ def replay_trace(torch, ms, flags, argv, counters):
         for c in counters:
             c.launches = 0
         t0 = time.perf_counter()
-        system = serve(parse_args(argv), model_sets={"sd3": ms})
+        system = serve(parse_args(argv), model_sets={ms.family.name: ms})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {c.__name__: c.launches for c in counters}
@@ -1464,24 +1833,26 @@ def replay_trace(torch, ms, flags, argv, counters):
             torch.cuda.max_memory_allocated() / 2**30)
 
 
-def trace_phase(torch, family, cn_weights, card, counters, device="cuda"):
+def trace_phase(torch, family, cn_weights, card, counters, device="cuda",
+                setting="s1", flag_runs=(False, True), ms=None):
     """Phase 7l: the first 8 requests of a ``generate_trace`` of Table 2's
-    S1 through the serving launcher at the family's width, once with
-    ``REPRO_DONATE`` and ``REPRO_OVERLAP`` off, once with both on; the
-    checks and the printed metrics of the docstring's 7l.  Returns the
-    shapes the runs gave flash attention and its launches in each run."""
+    ``setting`` (S1 by default) through the serving launcher at the
+    family's width, once for each of ``flag_runs`` (``REPRO_DONATE`` and
+    ``REPRO_OVERLAP`` both off, then both on), on ``ms`` (by default the
+    family's models drawn once, the ControlNets ``cn_weights``); the checks
+    and the printed metrics of the docstring's 7l.  Returns the shapes the
+    runs gave flash attention and its launches in each run."""
     from repro_torch.core.profiles import GPU_H800
     from repro_torch.sim import check_invariants, quantile
 
-    cfg = family.toy
-    ms = s1_model_set(family, cn_weights, device)
-    argv = SERVE_ARGS + ["--device", device]
+    ms = ms or s1_model_set(family, cn_weights, device)
+    argv = SERVE_ARGS + ["--setting", setting, "--device", device]
     runs, flash_shapes, flash_launches = {}, set(), []
-    for flags in (False, True):
+    for flags in flag_runs:
         system, wall, disp, launches, peak = replay_trace(
             torch, ms, flags, argv, counters)
         c = system.coordinator
-        label = f"donate={flags} overlap={flags}"
+        label = f"{setting} donate={flags} overlap={flags}"
         seg_flags = [comps["donate"] for mid, comps
                      in c.backend._components.items()
                      if mid.startswith("segment:")]
@@ -1564,6 +1935,8 @@ def trace_phase(torch, family, cn_weights, card, counters, device="cuda"):
         del system, c, images
         gc.collect()
         torch.cuda.empty_cache()
+    if set(runs) != {False, True}:
+        return flash_shapes, flash_launches
     (c_off, img_off, batches_off), (c_on, img_on, batches_on) = (
         runs[False], runs[True])
     # the batches follow the measured timeline, and a GEMM's bits may
@@ -2166,6 +2539,13 @@ def read_counts(counters) -> dict:
     return {c.__name__: c.launches for c in counters}
 
 
+def launched_since(counters, before) -> dict:
+    """The launches of each kernel since ``before`` (``read_counts``), for
+    the kernels that launched."""
+    return {k: n - before[k] for k, n in read_counts(counters).items()
+            if n != before[k]}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2716,7 +3096,8 @@ def time_flash_bwd(torch, fa, fref, shape, reps=10) -> dict:
     forward, at the rate of three TF32 passes (the card's f32-accurate
     product rate), with the f32 FMA rate's figure beside it
     (``bound_f32_fma_ms``, on the ``[time]`` line only).  Also on that
-    line: the kernel's share of its bound, its time over SDPA's backward,
+    line: the kernel's share of its bound (over ``queued_ms``), its time
+    over SDPA's backward,
     and the bound of the 7 products the kernel does (S and dP once in the
     dK/dV sweep and again in the dQ sweep) at three TF32 passes."""
     import torch.nn.functional as F
@@ -2732,17 +3113,20 @@ def time_flash_bwd(torch, fa, fref, shape, reps=10) -> dict:
     out = F.scaled_dot_product_attention(qs, ks, vs)
     ms = cuda_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse, do),
                  reps)
+    queued = queued_ms(torch, lambda: fa.flash_attention_bwd(q, k, v, o, lse,
+                                                             do))
     library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
         out, (qs, ks, vs), do, retain_graph=True), reps)
     return {
         "shape": "BH=%d,Sq=%d,Sk=%d,D=%d,float32" % shape,
         "ms": ms,
+        "queued_ms": queued,
         "plain_ms": cuda_ms(torch, lambda: fref.attention_bwd_ref(
             q, k, v, o, lse, do), reps),
         "library_ms": library_ms,
         "library": "torch.autograd.grad of F.scaled_dot_product_attention",
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "bound_share": bound_ms / ms, "over_library": ms / library_ms,
+        "bound_share": bound_ms / queued, "over_library": ms / library_ms,
         "bound_7_products_ms": bound(nbytes, 3 * 1.4 * flops, "tf32")[0],
         "bound_f32_fma_ms": bound(nbytes, flops, "float32")[0],
     }
@@ -2825,6 +3209,8 @@ def time_rglru_bwd(torch, rk, rref, shape, reps=10) -> dict:
     bound_ms, bound_by = bound(24.0 * b * t * d, 12.0 * b * t * d, "float32")
     return {"shape": "B=%d,T=%d,D=%d,float32" % shape,
             "ms": cuda_ms(torch, lambda: rk.rglru_scan_bwd(a, x, h, dh), reps),
+            "queued_ms": queued_ms(
+                torch, lambda: rk.rglru_scan_bwd(a, x, h, dh)),
             "plain_ms": cuda_ms(torch, lambda: rref.rglru_bwd_ref(a, x, h, dh),
                                 reps),
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
@@ -3548,6 +3934,9 @@ def main() -> None:
         errs.append(check_attention(torch, fa, shape, False, None, f32, 2e-5))
         timings.append(time_attention(torch, fa, shape, f32))
         log_attention_time(timings[-1], shape, card)
+    # the flash shapes held and timed so far; each later phase 5x takes
+    # only those it adds
+    checked_flash = set(shapes)
     # ------------------------------------------- 6. where the time goes
     profile_path(torch, system, [("sd3:basic", inp) for inp in REQUESTS],
                  card, "sd3:basic", {"flash_attention": FLASH_KERNELS})
@@ -3555,25 +3944,68 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ------------- 4f. Table 2's Flux and SD3.5-Large families at REAL width
+    # ---- 4t. Table 2's SD3.5-Large and Flux workflows at REAL width (with
+    # 6t, and 7t: S2's trace through the launcher)
     counters = (fa.flash_attention, lk.lora_matmul, lk.lora_matmul_grouped,
                 qk.quant_matmul, qk.quantize_rows, rk.rglru_scan)
-    log(f"[family] device memory held before phase 4f: "
+    log(f"[table2] device memory held before phase 4t: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    fam = family_phase(torch, card, counters)
-    # ------------------- 5f. flash attention at the families' own shapes
+    t2 = table2_phase(torch, card, counters)
+    # -------- 5t. each kernel at the shapes phase 4t gave it, held against
+    # its plain version and timed (flash attention where phase 5 did not)
     fam_timings = []
-    for shape, name in sorted(fam["flash_shapes"].items(),
-                              key=lambda x: -math.prod(x[0])):
-        if shape in shapes:
+    for shape, label in sorted(t2["flash"].items(),
+                               key=lambda x: -math.prod(x[0])):
+        if shape in checked_flash:
             continue
+        checked_flash.add(shape)
         err = check_attention(torch, fa, shape, False, None, f32, 2e-5)
         errs.append(err)
-        log(f"[kernel] {name} path {shape} float32: max|err| {err:.2e} "
+        log(f"[kernel] {label} path {shape} float32: max|err| {err:.2e} "
             f"<= 2e-05")
         fam_timings.append({**time_attention(torch, fa, shape, f32),
-                            "path": f"{name}:basic (phase 4f)"})
+                            "path": f"{label} (phase 4t)"})
         log_attention_time(fam_timings[-1], shape, card)
+    t2_lora_times = []
+    for label, spec in t2["lora"].items():
+        _, m, k, n, g, r, types, groups = spec
+        atol = 2e-5 * math.sqrt(k / 64)
+        err = check_lora_grouped(torch, lk, lref, (m, k, n, g, r), types,
+                                 path_idx(torch, groups, m // len(groups)),
+                                 atol, 0.0)
+        lora_path_err["grouped"] = max(lora_path_err["grouped"], err)
+        log(f"[kernel] lora_matmul_grouped {label} ({m}, {k}, {n}, {g}, {r}): "
+            f"max|err| {err:.2e} <= {atol:.2e}")
+        timing, fma_ms = time_lora(torch, lk, lref, spec)
+        t2_lora_times.append({**timing, "path": f"{label} (phase 4t)"})
+        log_lora_time(t2_lora_times[-1], fma_ms, card)
+    # the int8 products and the row quantization at the families' shapes,
+    # bit for bit; timed where they are not the SD3 path's (phase 5q)
+    t2_quant_times, t2_rows_times = [], []
+    sd3_quant = set(quant_full)
+    for shape, label in sorted(t2["quant"].items(),
+                               key=lambda x: -math.prod(x[0])):
+        if shape not in quant_checked:
+            check_quant(torch, qk, qref, shape)
+            quant_checked.add(shape)
+            log(f"[kernel] quant_matmul {label} {shape} "
+                f"({quant_route(torch, qk, shape)}): bit-identical")
+        if shape not in sd3_quant:
+            t2_quant_times.append({**time_quant(torch, qk, qref, shape),
+                                   "path": f"{label} (phase 4t)"})
+            log(f"[time] {json.dumps(t2_quant_times[-1])}  [{card}]")
+    t2_rows = {}
+    for (m, k, _), label in t2["quant"].items():
+        t2_rows.setdefault((m, k), label)
+    for shape, label in sorted(t2_rows.items(), key=lambda x: -math.prod(x[0])):
+        if shape not in rows_checked:
+            check_rows(torch, qk, qref, shape)
+            rows_checked.add(shape)
+            log(f"[kernel] quantize_rows {label} {shape}: bit-identical")
+        if shape not in {(m, k) for m, k, _ in sd3_quant}:
+            t2_rows_times.append({**time_rows(torch, qk, qref, shape),
+                                  "path": f"{label} (phase 4t)"})
+            log(f"[time] {json.dumps(t2_rows_times[-1])}  [{card}]")
 
     # -------------------------- 4q. full-width basic path under int8
     prev_mode = set_quant_mode("int8")
@@ -3600,7 +4032,7 @@ def main() -> None:
                     + rk.rglru_scan.launches)
         q_peak_gib = torch.cuda.max_memory_allocated() / 2**30
         q_log = system.coordinator.dispatch_log
-        q_expected, q_shapes = quant_path(q_log, cfg)
+        q_expected, q_shapes = quant_path(q_log, family)
         q_expected_flash, _ = expected_flash(q_log, family)
         segs = [d for d in q_log if d.model_id.startswith("segment:")]
         if (q_launches != q_expected or not segs
@@ -3859,8 +4291,9 @@ def main() -> None:
 
     # -------------- 5c. flash attention at the LoRA path's own shapes
     ml_timings = []
-    for shape in sorted(ml_flash_shapes - set(shapes),
+    for shape in sorted(ml_flash_shapes - checked_flash,
                         key=lambda s: -s[0] * s[1] * s[2] * s[3]):
+        checked_flash.add(shape)
         err = check_attention(torch, fa, shape, False, None, f32, 2e-5)
         errs.append(err)
         log(f"[kernel] LoRA path {shape} float32: max|err| {err:.2e} <= 2e-05")
@@ -3972,8 +4405,9 @@ def main() -> None:
 
     # -------- 5n. flash attention at the ControlNet path's own shapes
     cn_timings = []
-    for shape in sorted(cn_flash_shapes - set(shapes) - ml_flash_shapes,
+    for shape in sorted(cn_flash_shapes - checked_flash,
                         key=lambda s: -s[0] * s[1] * s[2] * s[3]):
+        checked_flash.add(shape)
         err = check_attention(torch, fa, shape, False, None, f32, 2e-5)
         errs.append(err)
         log(f"[kernel] ControlNet path {shape} float32: max|err| {err:.2e} "
@@ -4005,7 +4439,7 @@ def main() -> None:
         nq_others = (lk.lora_matmul.launches + lk.lora_matmul_grouped.launches
                      + rk.rglru_scan.launches)
         nq_log = q_system.coordinator.dispatch_log
-        nq_expected, nq_shapes = quant_path(nq_log, cfg)
+        nq_expected, nq_shapes = quant_path(nq_log, family)
         nq_expected_flash, _ = expected_flash(nq_log, family)
         nq_dispatches = [(d.model_id, len(d.nodes), d.segment_steps)
                          for d in nq_log]
@@ -4088,9 +4522,9 @@ def main() -> None:
 
     # ---------- 5l. flash attention at the trace's own shapes
     trace_timings = []
-    for shape in sorted(trace_shapes - set(shapes) - ml_flash_shapes
-                        - cn_flash_shapes,
+    for shape in sorted(trace_shapes - checked_flash,
                         key=lambda s: -s[0] * s[1] * s[2] * s[3]):
+        checked_flash.add(shape)
         err = check_attention(torch, fa, shape, False, None, f32, 2e-5)
         errs.append(err)
         log(f"[kernel] trace path {shape} float32: max|err| {err:.2e} "
@@ -4113,11 +4547,10 @@ def main() -> None:
 
     # ---------- 5s. flash attention at the sharded plane's own shapes
     shard_timings = []
-    covered = set(shapes) | ml_flash_shapes | cn_flash_shapes | trace_shapes
     seq_shape = (2 * cfg.n_heads,
                  cfg.text_tokens + cfg.image_tokens // max(SHARD_KS),
                  cfg.tokens, cfg.head_dim)
-    new_shapes = sorted(shard_shapes - covered,
+    new_shapes = sorted(shard_shapes - checked_flash,
                         key=lambda s: (s != seq_shape, -s[0] * s[1] * s[2] * s[3]))
     if seq_shape not in new_shapes:
         raise AssertionError(f"the sharded plane gave flash attention no "
@@ -4185,11 +4618,17 @@ def main() -> None:
                 "max_abs_err": err, "ms": lead["ms"],
                 "plain_ms": lead["plain_ms"], "bound_ms": lead["bound_ms"],
                 "bound_by": lead["bound_by"], "library_ms": lead["library_ms"],
-                **({key: lead[key] for key in ("library", "device_ms")
+                **({key: lead[key] for key in ("library", "queued_ms")
                     if key in lead}),
                 "shape": lead["shape"], "other_shapes": others}
 
     lora_src = "src/repro_torch/kernels/lora_matmul/csrc/lora_matmul.cu"
+    # phase 4t's launches of a kernel by run (its trace's flash under 7t)
+    def t2_launches(kernel):
+        return {label: run["launches"][kernel]
+                for label, run in t2["runs"].items()
+                if kernel in run.get("launches", {})}
+
     lead_key = f"mmdit-{lora_rows[0]}" if lora_rows[0] != 24576 else "mmdit"
     kernels = [
         entry("flash_attention",
@@ -4199,9 +4638,8 @@ def main() -> None:
               [t for t in timings if t is not main] + fam_timings
               + ml_timings + cn_timings + trace_timings + shard_timings
               + llm_timings,
-              {"basic": launches,
-               **{f"{name}:basic": run["flash_launches"]
-                  for name, run in fam["runs"].items()},
+              {"basic": launches, **t2_launches("flash_attention"),
+               "S2 trace, flags off": t2["runs"]["s2 trace"]["flash_launches"],
                "basic int8": q_flash, "lora": ml_flash,
                "controlnet": cn_flash, "controlnet int8": nq_flash,
                "S1 trace, flags off": trace_flash[0],
@@ -4223,21 +4661,27 @@ def main() -> None:
         entry("lora_matmul_grouped", lora_src,
               "src/repro/kernels/lora_matmul/kernel.py:172", ml_grouped,
               lora_path_err["grouped"], lora_times[lead_key],
-              [t for k, t in lora_times.items() if k not in (lead_key, "single")]),
+              [t for k, t in lora_times.items() if k not in (lead_key, "single")]
+              + t2_lora_times,
+              {"lora": ml_grouped, **t2_launches("lora_matmul_grouped"),
+               **{f"{label}, text encoder (one direct call)": 1
+                  for label in t2["runs"] if label.endswith("mixed LoRA")}}),
         entry("lora_matmul", lora_src,
               "src/repro/kernels/lora_matmul/kernel.py:133", 0,
               lora_path_err["single"], lora_times["single"], []),
         entry("quant_matmul",
               "src/repro_torch/kernels/quant_matmul/csrc/quant_matmul.cu",
               "src/repro/kernels/quant_matmul/kernel.py:68", q_launches,
-              q_err, q_times[0], q_times[1:],
-              {"basic int8": q_launches, "controlnet int8": nq_launches}),
+              q_err, q_times[0], q_times[1:] + t2_quant_times,
+              {"basic int8": q_launches, "controlnet int8": nq_launches,
+               **t2_launches("quant_matmul")}),
         # not a Pallas kernel: the plain jnp quantization before it
         entry("quantize_rows",
               "src/repro_torch/kernels/quant_matmul/csrc/quantize_rows.cu",
               "src/repro/kernels/quant_matmul/ops.py:112", q_rows, 0.0,
-              rows_times[0], rows_times[1:],
-              {"basic int8": q_rows, "controlnet int8": nq_rows}),
+              rows_times[0], rows_times[1:] + t2_rows_times,
+              {"basic int8": q_rows, "controlnet int8": nq_rows,
+               **t2_launches("quantize_rows")}),
         entry("rglru_scan",
               "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
               "src/repro/kernels/rglru_scan/kernel.py:61",

@@ -49,6 +49,11 @@ GRID = [
     ((3, 100, 333, 128), False, None),
     ((2, 333, 100, 128), False, None),
     ((1, 400, 150, 128), True, 1),      # blocks that see no key tile
+    # Table 2's ControlNet and LoRA workflows at published width: Flux's
+    # 3-request mixed LoRA batch (no CFG rows), SD3.5-Large's ControlNet
+    # branch on the latent rows (38 heads of 64)
+    ((72, 4608, 4608, 128), False, None),
+    ((38, 4429, 4429, 64), False, None),
 ]
 
 
@@ -232,7 +237,13 @@ def _cycle_idx(card, m, g):
     ((300, 4096, 520, 2, 8), (torch.float32,) * 3),          # text depth
     ((300, 1536, 520, 2, 8),
      (torch.float32, torch.bfloat16, torch.bfloat16)),       # MMDiT depth
-], ids=["k4096-f32", "k1536-f32-bf16"])
+    # Table 2's mixed LoRA batches at published width: Flux (3 requests x
+    # 4096 image rows, d 3072) and SD3.5-Large (6 CFG rows x 4096, d 2432)
+    ((12288, 3072, 3072, 2, 8),
+     (torch.float32, torch.bfloat16, torch.bfloat16)),
+    ((24576, 2432, 2432, 2, 8),
+     (torch.float32, torch.bfloat16, torch.bfloat16)),
+], ids=["k4096-f32", "k1536-f32-bf16", "flux-k3072", "sd35-k2432"])
 def test_lora_kernels_hold_the_path_gate_at_deep_k(card, shape, dtypes):
     """Both forms at the path's depths hold the path gate, atol
     2e-5*sqrt(K/64) (rtol 0), with rows of each adapter and none; the
@@ -334,7 +345,12 @@ QUANT_GRID = [(1, 8, 8), (5, 24, 40), (33, 128, 96), (128, 100, 200),
               # at M 1, 4 and 64, byte loads (K or N not a multiple of 16)
               (1, 1536, 9216), (64, 4096, 1536), (333, 4096, 4096),
               (333, 4096, 16384), (1332, 1536, 6144), (2000, 1536, 6144),
-              (333, 16384, 4096), (37, 200, 130), (700, 999, 4100)]
+              (333, 16384, 4096), (37, 200, 130), (700, 999, 4100),
+              # Table 2's int8 forms at published width: Flux (no CFG rows,
+              # d 3072, d_ff 12288, ada 6d on one row) and SD3.5-Large (CFG
+              # rows, d 2432, d_ff 9728)
+              (4096, 3072, 12288), (4096, 12288, 3072), (1, 3072, 18432),
+              (8192, 2432, 9728), (8192, 9728, 2432), (2, 2432, 14592)]
 
 
 def _quant_inputs(card, m, k, n, seed=2):
@@ -405,6 +421,36 @@ def test_quant_matmul_refuses_what_it_does_not_take(card):
         quant_matmul(xq, wq, xs, ws[:, :8].contiguous())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_quantize_weight_holds_one_layer_of_temporaries(card, mode):
+    """A layer-stacked bf16 leaf (Flux's ``ada``, [L, 3072, 18432], cut to
+    8 layers) quantizes one layer at a time: the peak above the input is
+    the quantized output and a few float32 copies of one layer (the whole
+    leaf in float32 is 1.8 GB, twice the bound), and the bits are the
+    whole-leaf quantization's."""
+    from repro_torch.kernels.quant_matmul.ops import (
+        _quantize_matrix,
+        quantize_weight,
+    )
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    w = (torch.randn((8, 3072, 18432), generator=gen, device=card)
+         * 0.02).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    q = quantize_weight(w, mode)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    out_bytes = sum(t.numel() * t.element_size() for t in q.values())
+    layer_f32 = 3072 * 18432 * 4
+    assert peak <= out_bytes + 4 * layer_f32, (peak, out_bytes, layer_f32)
+    whole = _quantize_matrix(w, mode)
+    assert torch.equal(q["qw"].view(torch.uint8), whole["qw"].view(torch.uint8))
+    assert torch.equal(q["qs"], whole["qs"])
+
+
 # ------------------------------------------------- activation quantization
 # Bit for bit: the kernel repeats the plain version's float32 operations.
 
@@ -424,7 +470,8 @@ def _rows_probe(card, m, k, seed=6):
 @pytest.mark.parametrize("m,k", [(4, 1536), (16384, 1536), (1332, 6144),
                                  (333, 4096), (333, 16384), (1, 17),
                                  (37, 1000), (9, 1001), (5, 3001), (3, 20000),
-                                 (2, 40000), (2, 40001)])
+                                 (2, 40000), (2, 40001), (4096, 12288),
+                                 (1, 3072), (8192, 9728), (2, 2432)])
 def test_quantize_rows_matches_plain_version(card, m, k):
     """The int8 path's shapes (32 to 512 threads a row), ragged K (K % 4 !=
     0 takes element loads), and rows too long to hold in registers."""
