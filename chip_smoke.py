@@ -135,11 +135,24 @@ Phases (any failed check raises, and the script exits non-zero):
    warm system under the profiler (inside 4t); flash attention, the f32
    GEMMs and the convolutions by device time and share of busy time, and
    the idle share.
-7t. Table 2's S2 replayed through the serving launcher (inside 4t, on
-   sd3.5-large's f32 weights): the first 8 requests of its
-   ``generate_trace`` through ``repro_torch.launch.serve.serve()`` with
-   ``REPRO_DONATE`` and ``REPRO_OVERLAP`` off, checked and printed as
-   phase 7l.
+7t. Table 2's S2, S5, S3 and S4 replayed through the serving launcher
+   at published width (inside 4t): the first 8 requests of each
+   setting's ``generate_trace`` through ``repro_torch.launch.serve.serve()``
+   with ``REPRO_DONATE`` and ``REPRO_OVERLAP`` off, on one executor, one
+   ``ModelSet`` a family (``table2_trace``): S2 on sd3.5-large's f32
+   weights, S5 on those and sd3's at ``REAL["sd3"]`` (two families on one
+   executor), S3 on flux-schnell's int8 weights, then S4 on flux-dev's,
+   drawn and quantized at load from its own model ids.  Checked and
+   printed as phase 7l, and: the 8 requests all done or rejected; every
+   segment ``trace_missing`` asks for dispatched (a family's, and a Flux
+   family's +C.N.2; where admission rejected every request of one, the
+   setting is replayed with ``--no-admission`` and says so); under int8
+   ``quant_matmul`` and ``quantize_rows`` exactly as ``quant_path``
+   reckons; the reckonings take each dispatch's family from its model id
+   (``dispatch_family``); the peak beside ``TRACE_PEAK_GIB``'s
+   prediction.  S6 (flux-schnell and flux-dev) is not served: the script
+   prints why one card cannot hold it, from S3's and S4's int8 weights,
+   S3's working memory and the card's memory (``s6_reckoning``).
 4b. The LoRA path: sd3:lora:tenantA, sd3:lora:tenantB and sd3:basic served
    together at full width, 4 steps, on one card with the multilora
    scheduler and the passes of the JAX package's multi-tenant test
@@ -239,7 +252,8 @@ Phases (any failed check raises, and the script exits non-zero):
    both on (fresh systems: the flags are read at build and at load).
    Counts set to 0 just before each run and read just after: flash
    attention exactly ``expected_flash`` of the run's dispatches, no other
-   kernel.  Each run: ``check_invariants`` clean; every image (1, 1024,
+   kernel.  Each run: the 8 requests done or rejected, an S1 segment
+   dispatched; ``check_invariants`` clean; every image (1, 1024,
    1024, 3), finite, in [-1, 1]; across the runs the same requests finish
    and each image is bit-identical.  Printed per run: wall and the
    coordinator's makespan, requests done and rejected, SLO attainment,
@@ -417,9 +431,9 @@ path's run (the single-adapter LoRA kernel has no serving path: 0;
 ``rglru_scan``'s are phase 8h's prefill; ``launches_by_path`` gives each
 path's count where a kernel has several, the sharded plane's under
 ``sharded``, phase 4t's under each request's label (``sd3.5-large:cn1``,
-``flux-schnell:cn2 int8``, ``flux-schnell mixed LoRA``, ...) and S2's
-trace under ``S2 trace, flags off``, whisper-tiny's prefill and train run
-among flash
+``flux-schnell:cn2 int8``, ``flux-schnell mixed LoRA``, ...) and 7t's
+traces under ``s2 trace``, ``s5 trace``, ``s3 trace int8`` and ``s4 trace
+int8``, whisper-tiny's prefill and train run among flash
 attention's; the backward kernels' are phase 9's 3-step runs), and each
 leads with the largest shape its path launched (``rglru_scan`` with its
 served shape), the others under ``other_shapes``.  The line before the last
@@ -487,15 +501,24 @@ D128_BANDS = (((3, 500, 500, 128), True, None), ((2, 300, 300, 128), True, 37),
 # width, each request at STEPS steps (flux-schnell's published count): the
 # family, the REAL config it takes (flux-schnell shares flux-dev's
 # backbone), its Table 2 setting, the workflows served in f32 and those
-# served under int8.
+# served under int8, and the settings phase 7t replays through the
+# launcher on the f32 weights and on the int8 weights.
 # flux-schnell:cn2 is not served in f32: its bf16 weights and working
 # memory exceed one card (phase 4t prints the reckoning)
 TABLE2_RUNS = (("sd3.5-large", "sd3.5-large", "s2", ("basic", "cn1", "cn2"),
-                ("basic", "cn1", "cn2")),
+                ("basic", "cn1", "cn2"), ("s2", "s5"), ()),
                ("flux-schnell", "flux-dev", "s3", ("basic", "cn1"),
-                ("basic", "cn1", "cn2")))
-# phase 7t: the setting of TABLE2_RUNS replayed through the launcher
-TABLE2_TRACE = "s2"
+                ("basic", "cn1", "cn2"), (), ("s3",)))
+# phase 7t after those runs: S4 under int8 on weights of its own; S6 (both
+# Flux families) is reckoned from S3's and S4's readings, not served
+TABLE2_INT8_TRACES = ("s4",)
+# the REAL config a family takes where its name is not one
+REAL_NAME = {"flux-schnell": "flux-dev"}
+# each replay's peak device memory in GiB, predicted before its first run
+# on the card from earlier readings (PERF.md section 6); printed beside the
+# measured peak, no gate
+TRACE_PEAK_GIB = {"s1": 15.18, "s2": 43.77, "s3": 51.0, "s4": 51.0,
+                  "s5": 53.0}
 # the basic requests' joint attention (Flux without CFG rows, SD3.5-Large
 # with) and Flux's text encoder (4 heads of 1024 over 512 tokens)
 FAMILY_SHAPES = ((24, 4608, 4608, 128), (76, 4429, 4429, 64),
@@ -1106,38 +1129,39 @@ def time_quant(torch, qk, qref, shape, reps=10) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def quant_path(dispatch_log, family) -> tuple:
+def quant_path(dispatch_log, *families) -> tuple:
     """int8 products the served dispatches must have made, and their (M, K,
     N): 7 per stream and layer of each backbone and ControlNet forward (ada
     on the rows, q/k/v/o, w1 and w2 on every token row of the stream; the
     backbone on the CFG-doubled rows where the family uses CFG, a
     ControlNet on the latent rows, and its zero_proj and embeddings
-    unquantized), 6 per layer of each text-encoder batch (2 layers)."""
-    cfg, expected, shapes = family.toy, 0, set()
-    cfg_rows = 2 if family.uses_cfg else 1
-    d, ff, td = cfg.d_model, cfg.d_ff, cfg.text_dim
+    unquantized), 6 per layer of each text-encoder batch (2 layers); each
+    dispatch at the width of the family its model id names."""
+    expected, shapes = 0, set()
 
-    def forward(rows):
+    def forward(cfg, rows):
+        d, ff = cfg.d_model, cfg.d_ff
         shapes.add((rows, d, 6 * d))
         for m in (rows * cfg.image_tokens, rows * cfg.text_tokens):
             shapes.update({(m, d, d), (m, d, ff), (m, ff, d)})
 
     for disp in dispatch_log:
-        n = len(disp.nodes)
+        family = dispatch_family(disp.model_id, families)
+        cfg, n = family.toy, len(disp.nodes)
         if disp.model_id.startswith(("segment:", "backbone:")):
             fwd = (disp.segment_steps if disp.model_id.startswith("segment:")
                    else 1)
             cns = n_controlnets(disp.model_id)
             expected += fwd * (cfg.n_layers + cns * cn_layers(cfg)) * 2 * 7
-            forward(cfg_rows * n)                       # one-pass CFG
+            forward(cfg, (2 if family.uses_cfg else 1) * n)  # one-pass CFG
             if cns:
-                forward(n)
+                forward(cfg, n)
         elif disp.model_id.startswith("controlnet"):
             expected += cn_layers(cfg) * 2 * 7
-            forward(n)
+            forward(cfg, n)
         elif disp.model_id.startswith("text_encoder:"):
             expected += 2 * 6
-            m = n * cfg.text_tokens
+            m, td = n * cfg.text_tokens, cfg.text_dim
             shapes |= {(m, td, td), (m, td, 4 * td), (m, 4 * td, td)}
     return expected, shapes
 
@@ -1389,15 +1413,25 @@ def n_controlnets(model_id) -> int:
     return model_id.count("+controlnet")
 
 
-def expected_flash(dispatch_log, family) -> tuple:
+def dispatch_family(model_id, families):
+    """The family among ``families`` that a dispatch's model id names:
+    ``<kind>:<family>``, or a fused segment's
+    ``segment:backbone:<family>+...``."""
+    head = model_id.removeprefix("segment:").split("+")[0]
+    return {f.name: f for f in families}[head.rsplit(":", 1)[-1]]
+
+
+def expected_flash(dispatch_log, *families) -> tuple:
     """Flash-attention launches the dispatches must have made, and the
     shapes they gave the kernel: per step, a layer's launch for each of the
     backbone's (on the CFG-doubled rows where the family uses CFG) and each
-    ControlNet's (on the latent rows)."""
-    cfg, expected, shapes = family.toy, 0, set()
-    rows = 2 if family.uses_cfg else 1     # backbone rows a request
+    ControlNet's (on the latent rows); each dispatch at the width of the
+    family its model id names (``dispatch_family``)."""
+    expected, shapes = 0, set()
     for d in dispatch_log:
-        n = len(d.nodes)
+        family = dispatch_family(d.model_id, families)
+        cfg, n = family.toy, len(d.nodes)
+        rows = 2 if family.uses_cfg else 1     # backbone rows a request
         if d.model_id.startswith("segment:"):
             cns = n_controlnets(d.model_id)
             expected += d.segment_steps * (cfg.n_layers + cns * cn_layers(cfg))
@@ -1620,10 +1654,12 @@ def table2_phase(torch, card, counters, device="cuda", real=None) -> dict:
     """Phase 4t (the docstring's 4t, 6t and 7t): for each of
     ``TABLE2_RUNS``, the family at its REAL width (``real`` maps the
     configs' names, ``REAL`` by default): the f32 requests, each against
-    the plain attention route, the mixed LoRA batch, for S2 the trace
-    through the launcher, then the int8 requests, each against its f32
-    image (flux-schnell:cn2, which has none, against the plain int8
-    route, bit for bit); each system freed before the next.  Returns each
+    the plain attention route, the mixed LoRA batch, the run's f32 traces
+    through the launcher (``table2_trace``), then the int8 requests, each
+    against its f32 image (flux-schnell:cn2, which has none, against the
+    plain int8 route, bit for bit), and the run's int8 traces; each system
+    freed before the next.  Then ``TABLE2_INT8_TRACES`` on weights of
+    their own, and S6's reckoning (``s6_reckoning``).  Returns each
     run's record under ``runs`` and the shapes each kernel was given on
     which path (``flash``, ``quant``, ``lora``)."""
     from repro_torch.diffusion import FAMILIES, REAL
@@ -1633,7 +1669,8 @@ def table2_phase(torch, card, counters, device="cuda", real=None) -> dict:
 
     real = real or REAL
     out = {"runs": {}, "flash": {}, "quant": {}, "lora": {}}
-    for name, real_name, setting, f32_wfs, int8_wfs in TABLE2_RUNS:
+    for (name, real_name, setting, f32_wfs, int8_wfs, f32_traces,
+         int8_traces) in TABLE2_RUNS:
         family = dataclasses.replace(FAMILIES[name], toy=real[real_name])
         cfg = family.toy
         n_cns = max(int(wf[2:]) for wf in f32_wfs if wf != "basic")
@@ -1719,14 +1756,10 @@ def table2_phase(torch, card, counters, device="cuda", real=None) -> dict:
         for shape in fshapes:
             out["flash"].setdefault(shape, f"{name} mixed LoRA")
         free(torch)
-        if setting == TABLE2_TRACE:
-            # 7t. the setting's trace through the serving launcher
-            t_shapes, t_flash = trace_phase(
-                torch, family, None, card, counters, device,
-                setting=setting, flag_runs=(False,), ms=ms)
-            out["runs"][f"{setting} trace"] = {"flash_launches": t_flash[0]}
-            for shape in t_shapes:
-                out["flash"].setdefault(shape, f"{setting} trace")
+        for trace in f32_traces:
+            # 7t. a setting's trace through the serving launcher
+            table2_trace(torch, trace, {name: ms}, card, counters, device,
+                         real, out)
         del ms
         free(torch)
 
@@ -1784,20 +1817,126 @@ def table2_phase(torch, card, counters, device="cuda", real=None) -> dict:
                     del plain
                 out["runs"][label] = rec
                 del img
-            del system, ms
+            del system
+            free(torch)
+            for trace in int8_traces:
+                table2_trace(torch, trace, {name: ms}, card, counters, device,
+                             real, out)
+            del ms
         finally:
             set_quant_mode(prev_mode)
         free(torch)
+    prev_mode = set_quant_mode("int8")
+    try:
+        for trace in TABLE2_INT8_TRACES:
+            table2_trace(torch, trace, {}, card, counters, device, real, out)
+    finally:
+        set_quant_mode(prev_mode)
+    s6_reckoning(torch, out, card)
     return out
 
 
-def replay_trace(torch, ms, flags, argv, counters):
+def model_set_gib(ms) -> float:
+    """GiB of a ``ModelSet``'s drawn weights (the VAE's encoder shares its
+    decoder's tree)."""
+    return sum(tree_gib(getattr(ms, m).weights)
+               for m in ("text_enc", "backbone", "vae_dec", "cn1", "cn2")
+               if getattr(ms, m).weights is not None)
+
+
+def table2_trace(torch, setting, shared, card, counters, device, real, out):
+    """Phase 7t for ``setting``: the first 8 requests of its trace through
+    the launcher, flags off (``trace_phase``), on one ``ModelSet`` a family
+    of ``TABLE2_FAMILIES[setting]``: ``shared``'s (a family name to the
+    ``ModelSet`` phase 4t drew), the rest drawn here at REAL width with
+    both ControlNets in the active quant mode (quantized at load under
+    int8) and freed after.  Records the run under ``<setting> trace``
+    (`` int8`` under int8) in ``out["runs"]`` with each family's weights,
+    the memory held before the replay and its peak, and its shapes under
+    ``out["flash"]`` and ``out["quant"]``."""
+    from repro_torch.diffusion import FAMILIES
+    from repro_torch.diffusion.workflows import TABLE2_FAMILIES
+    from repro_torch.nn.layers import quant_mode
+
+    mode = quant_mode()
+    label = f"{setting} trace" + (" int8" if mode == "int8" else "")
+    model_sets = {}
+    for name in TABLE2_FAMILIES[setting]:
+        if name in shared:
+            model_sets[name] = shared[name]
+            continue
+        real_name = REAL_NAME.get(name, name)
+        family = dataclasses.replace(FAMILIES[name], toy=real[real_name])
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        model_sets[name] = draw_model_set(family, 2, device)
+        torch.cuda.synchronize()
+        log(f"[table2] {label}: {name} at REAL[{real_name!r}] ({mode}): "
+            f"weights drawn in {time.perf_counter() - t0:.2f} s, "
+            f"{model_set_gib(model_sets[name]):.2f} GiB, load peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    weights = {name: model_set_gib(ms) for name, ms in model_sets.items()}
+    held = torch.cuda.memory_allocated() / 2**30
+    log(f"[table2] {label}: families {list(model_sets)} on one executor, "
+        f"weights {', '.join(f'{n} {g:.2f} GiB' for n, g in weights.items())}"
+        f"; {held:.2f} GiB held on the card before the replay  [{card}]")
+    shapes, (summary,) = trace_phase(torch, model_sets, card, counters,
+                                     device, setting=setting,
+                                     flag_runs=(False,))
+    peak = summary["peak_memory_gib"]
+    out["runs"][label] = {
+        "wall_s": summary["wall_s"], "done": summary["done"],
+        "rejected": summary["rejected"], "admission": summary["admission"],
+        "peak_gib": peak, "predicted_peak_gib": TRACE_PEAK_GIB[setting],
+        "held_gib": held, "working_gib": peak - held, "weights_gib": weights,
+        "cost_model_controlnet_gib": {
+            name: ms.cn1.cost().param_bytes / 2**30
+            for name, ms in model_sets.items()},
+        "launches": {k: n for k, n in summary["launches"].items() if n}}
+    for shape in shapes["flash"]:
+        out["flash"].setdefault(shape, label)
+    for shape in shapes["quant"]:
+        out["quant"].setdefault(shape, label)
+    del model_sets
+    free(torch)
+
+
+def s6_reckoning(torch, out, card) -> None:
+    """S6 (flux-schnell and flux-dev on one executor) is not served on one
+    card: both families' int8 weights as S3's and S4's replays measured
+    them, plus S3's working memory (its peak over what the card held
+    before it), against the card's memory.  The executor's eviction counts
+    the cost model's bytes (a ControlNet at 0.72e9 parameters), and the
+    weights stay referenced by their ``ModelSet``, so an eviction would
+    free nothing."""
+    s3, s4 = out["runs"]["s3 trace int8"], out["runs"]["s4 trace int8"]
+    w3, w4 = s3["weights_gib"]["flux-schnell"], s4["weights_gib"]["flux-dev"]
+    need = w3 + w4 + s3["working_gib"]
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    cost = s3["cost_model_controlnet_gib"]["flux-schnell"]
+    out["runs"]["s6 reckoning"] = {
+        "weights_gib": {"flux-schnell": w3, "flux-dev": w4},
+        "s3_working_gib": s3["working_gib"], "need_gib": need,
+        "card_gib": total, "cost_model_controlnet_gib": cost}
+    verdict = "over" if need > total else "under"
+    log(f"[table2] s6 (flux-schnell + flux-dev under int8) is not served on "
+        f"one card: flux-schnell {w3:.2f} GiB + flux-dev {w4:.2f} GiB of int8 "
+        f"weights (S3's and S4's draws), plus S3's measured working memory "
+        f"{s3['working_gib']:.2f} GiB (its peak {s3['peak_gib']:.2f} less "
+        f"the {s3['held_gib']:.2f} held before it): {need:.2f} GiB, {verdict} "
+        f"the card's {total:.2f} GiB; the executor's eviction counts the "
+        f"cost model's {cost:.2f} GiB a ControlNet and frees nothing the "
+        f"ModelSet still holds  [{card}]")
+
+
+def replay_trace(torch, model_sets, flags, argv, counters):
     """One run of the serving launcher (``repro_torch.launch.serve.serve``)
-    on ``ms`` with ``REPRO_DONATE`` and ``REPRO_OVERLAP`` both ``flags``
-    (both read at build and load, so the system is fresh), the kernel
-    counts set to 0 just before.  Returns the system, its wall seconds,
-    each dispatch's (virtual start, model id, request ids, predicted
-    seconds, measured seconds), the launches and the peak memory."""
+    on ``model_sets`` (a family name to its ``ModelSet``) with
+    ``REPRO_DONATE`` and ``REPRO_OVERLAP`` both ``flags`` (both read at
+    build and load, so the system is fresh), the kernel counts set to 0
+    just before.  Returns the system, its wall seconds, each dispatch's
+    (virtual start, model id, request ids, predicted seconds, measured
+    seconds), the launches and the peak memory."""
     from repro_torch.core.runtime import Coordinator, set_overlap
     from repro_torch.diffusion.sampler import set_donate_buffers
     from repro_torch.launch.serve import parse_args, serve
@@ -1818,13 +1957,12 @@ def replay_trace(torch, ms, flags, argv, counters):
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for c in counters:
-            c.launches = 0
+        zero_counts(counters)
         t0 = time.perf_counter()
-        system = serve(parse_args(argv), model_sets={ms.family.name: ms})
+        system = serve(parse_args(argv), model_sets=model_sets)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {c.__name__: c.launches for c in counters}
+        launches = read_counts(counters)
     finally:
         Coordinator._execute_real = real
         set_donate_buffers(prev[0])
@@ -1833,26 +1971,65 @@ def replay_trace(torch, ms, flags, argv, counters):
             torch.cuda.max_memory_allocated() / 2**30)
 
 
-def trace_phase(torch, family, cn_weights, card, counters, device="cuda",
-                setting="s1", flag_runs=(False, True), ms=None):
-    """Phase 7l: the first 8 requests of a ``generate_trace`` of Table 2's
-    ``setting`` (S1 by default) through the serving launcher at the
-    family's width, once for each of ``flag_runs`` (``REPRO_DONATE`` and
-    ``REPRO_OVERLAP`` both off, then both on), on ``ms`` (by default the
-    family's models drawn once, the ControlNets ``cn_weights``); the checks
-    and the printed metrics of the docstring's 7l.  Returns the shapes the
-    runs gave flash attention and its launches in each run."""
+def trace_missing(dispatch_log, setting) -> list:
+    """The segments a replay of ``setting`` must dispatch and no dispatch
+    ran: each family's backbone, and a Flux family's +C.N.2 (the request
+    f32 cannot serve on one card; phase 4t serves it alone).  A segment id
+    is run by a dispatch of it or of it fused with more ControlNets."""
+    from repro_torch.diffusion.workflows import TABLE2_FAMILIES
+
+    must = [f"segment:backbone:{f}" for f in TABLE2_FAMILIES[setting]] + [
+        f"segment:backbone:{f}+controlnet1:{f}+controlnet2:{f}"
+        for f in TABLE2_FAMILIES[setting] if f.startswith("flux")]
+    ran = {d.model_id for d in dispatch_log}
+    return [m for m in must
+            if not any(r == m or r.startswith(m + "+") for r in ran)]
+
+
+def trace_phase(torch, model_sets, card, counters, device="cuda",
+                setting="s1", flag_runs=(False, True)):
+    """Phase 7l (and 7t): the first 8 requests of a ``generate_trace`` of
+    Table 2's ``setting`` (S1 by default) through the serving launcher on
+    ``model_sets`` (a family name to its ``ModelSet``, weights drawn once),
+    once for each of ``flag_runs`` (``REPRO_DONATE`` and ``REPRO_OVERLAP``
+    both off, then both on), in the active quant mode; the checks and the
+    printed metrics of the docstring's 7l.  A run whose admission rejected
+    every request of a segment ``trace_missing`` asks for is replayed with
+    ``--no-admission``, and says so.  Returns the shapes the runs gave
+    flash attention and, under int8, ``quant_matmul``, and each run's
+    summary."""
     from repro_torch.core.profiles import GPU_H800
+    from repro_torch.nn.layers import quant_mode
     from repro_torch.sim import check_invariants, quantile
 
-    ms = ms or s1_model_set(family, cn_weights, device)
+    families = [ms.family for ms in model_sets.values()]
+    int8 = quant_mode() == "int8"
     argv = SERVE_ARGS + ["--setting", setting, "--device", device]
-    runs, flash_shapes, flash_launches = {}, set(), []
+    runs, shapes, summaries = {}, {"flash": set(), "quant": set()}, []
     for flags in flag_runs:
         system, wall, disp, launches, peak = replay_trace(
-            torch, ms, flags, argv, counters)
-        c = system.coordinator
-        label = f"{setting} donate={flags} overlap={flags}"
+            torch, model_sets, flags, argv, counters)
+        c, admission = system.coordinator, "on"
+        missing = trace_missing(c.dispatch_log, setting)
+        if missing and c.rejected:
+            log(f"[trace] {setting}: admission rejected every request of "
+                f"{missing} ({len(c.rejected)} rejected): replayed with "
+                f"--no-admission")
+            del system, c
+            free(torch)
+            system, wall, disp, launches, peak = replay_trace(
+                torch, model_sets, flags, argv + ["--no-admission"], counters)
+            c, admission = system.coordinator, "off (--no-admission)"
+            missing = trace_missing(c.dispatch_log, setting)
+        label = (f"{setting}{' int8' if int8 else ''} donate={flags} "
+                 f"overlap={flags}")
+        if missing:
+            ran = sorted({d.model_id for d in c.dispatch_log})
+            raise AssertionError(f"trace {label}: no dispatch ran {missing}; "
+                                 f"dispatched {ran}")
+        if len(c.finished) + len(c.rejected) != 8:
+            raise AssertionError(f"trace {label}: {len(c.finished)} done and "
+                                 f"{len(c.rejected)} rejected of 8 requests")
         seg_flags = [comps["donate"] for mid, comps
                      in c.backend._components.items()
                      if mid.startswith("segment:")]
@@ -1861,14 +2038,17 @@ def trace_phase(torch, family, cn_weights, card, counters, device="cuda",
             raise AssertionError(f"trace {label}: the flags did not reach the "
                                  f"coordinator ({c.overlap}) and the "
                                  f"segments ({seg_flags})")
-        want_flash, run_shapes = expected_flash(c.dispatch_log, family)
-        flash_shapes |= run_shapes
-        flash_launches.append(launches["flash_attention"])
-        others = sum(n for name, n in launches.items()
-                     if name != "flash_attention")
-        if launches["flash_attention"] != want_flash or others:
+        want_flash, run_shapes = expected_flash(c.dispatch_log, *families)
+        want = {"flash_attention": want_flash}
+        shapes["flash"] |= run_shapes
+        if int8:
+            want["quant_matmul"], q_shapes = quant_path(c.dispatch_log,
+                                                        *families)
+            want["quantize_rows"] = want["quant_matmul"]
+            shapes["quant"] |= q_shapes
+        if {k: n for k, n in launches.items() if n} != want:
             raise AssertionError(f"trace {label}: launches {launches}, "
-                                 f"flash_attention expected {want_flash}")
+                                 f"expected {want}")
         errs_t = check_invariants(c)
         if errs_t:
             raise AssertionError(f"trace {label}: invariants {errs_t}")
@@ -1885,7 +2065,8 @@ def trace_phase(torch, family, cn_weights, card, counters, device="cuda",
         for _, mid, rids, pred, meas in disp:
             by_model.setdefault(mid, []).append((pred, meas))
         summary = {
-            "flags": label, "wall_s": wall, "makespan_s": c.now,
+            "flags": label, "admission": admission, "wall_s": wall,
+            "makespan_s": c.now,
             "done": len(c.finished), "rejected": len(c.rejected),
             "slo_attainment": system.slo_attainment(),
             "mean_latency_s": system.mean_latency(),
@@ -1894,7 +2075,9 @@ def trace_phase(torch, family, cn_weights, card, counters, device="cuda",
             "dispatches": len(c.dispatch_log),
             "n_overlap_dispatches": c.n_overlap_dispatches,
             "overlap_hidden_seconds": c.overlap_hidden_seconds,
-            "peak_memory_gib": peak, "launches": launches,
+            "peak_memory_gib": peak,
+            "predicted_peak_gib": TRACE_PEAK_GIB.get(setting),
+            "launches": launches,
             "per_model": {mid: {
                 "dispatches": len(v),
                 "predicted_s_mean": statistics.mean(p for p, _ in v),
@@ -1910,16 +2093,20 @@ def trace_phase(torch, family, cn_weights, card, counters, device="cuda",
             "timeline": [(round(s, 4), mid, rids, round(m, 4))
                          for s, mid, rids, _, m in disp],
         }
+        summaries.append(summary)
+        predicted = summary["predicted_peak_gib"]
         log(f"[trace] {json.dumps(summary)}  [{card}]")
         log(f"[trace] {label}: wall {wall:.3f} s, coordinator makespan "
             f"{c.now:.3f} s, {len(c.finished)} done, {len(c.rejected)} "
-            f"rejected, SLO attainment {summary['slo_attainment']:.3f}, "
+            f"rejected (admission {admission}), SLO attainment "
+            f"{summary['slo_attainment']:.3f}, "
             f"latency mean {summary['mean_latency_s']:.3f} s p50 "
             f"{summary['p50_latency_s']:.3f} s p99 {c.p99_latency():.3f} s, "
             f"{len(c.dispatch_log)} dispatches, overlap dispatches "
             f"{c.n_overlap_dispatches} hiding {c.overlap_hidden_seconds:.4f} "
-            f"s, peak memory {peak:.2f} GiB, flash_attention launches "
-            f"{launches['flash_attention']} (expected {want_flash})  [{card}]")
+            f"s, peak memory {peak:.2f} GiB (predicted "
+            + (f"{predicted:.2f}" if predicted else "not") + f"), launches "
+            f"{want} (exact)  [{card}]")
         for mid, row in summary["per_model"].items():
             log(f"[trace] {label}: {mid}: {row['dispatches']} dispatches, "
                 f"predicted ({GPU_H800.name} profile) "
@@ -1933,10 +2120,9 @@ def trace_phase(torch, family, cn_weights, card, counters, device="cuda",
                 "decode became ready while a segment held the executor")
         runs[flags] = (c, images, [(mid, rids) for _, mid, rids, _, _ in disp])
         del system, c, images
-        gc.collect()
-        torch.cuda.empty_cache()
+        free(torch)
     if set(runs) != {False, True}:
-        return flash_shapes, flash_launches
+        return shapes, summaries
     (c_off, img_off, batches_off), (c_on, img_on, batches_on) = (
         runs[False], runs[True])
     # the batches follow the measured timeline, and a GEMM's bits may
@@ -1957,7 +2143,7 @@ def trace_phase(torch, family, cn_weights, card, counters, device="cuda",
     log(f"[trace] flags off vs on: the same {len(done_off)} requests "
         f"finished, every image bit-identical; the same batches in both "
         f"runs: {same_batches}")
-    return flash_shapes, flash_launches
+    return shapes, summaries
 
 
 def batch_plan(dispatch_log, reqs) -> list:
@@ -3936,6 +4122,7 @@ def main() -> None:
         log_attention_time(timings[-1], shape, card)
     # the flash shapes held and timed so far; each later phase 5x takes
     # only those it adds
+    basic_flash = frozenset(shapes)
     checked_flash = set(shapes)
     # ------------------------------------------- 6. where the time goes
     profile_path(torch, system, [("sd3:basic", inp) for inp in REQUESTS],
@@ -3945,7 +4132,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 4t. Table 2's SD3.5-Large and Flux workflows at REAL width (with
-    # 6t, and 7t: S2's trace through the launcher)
+    # 6t, and 7t: S2, S5, S3 and S4 through the launcher)
     counters = (fa.flash_attention, lk.lora_matmul, lk.lora_matmul_grouped,
                 qk.quant_matmul, qk.quantize_rows, rk.rglru_scan)
     log(f"[table2] device memory held before phase 4t: "
@@ -4415,9 +4602,12 @@ def main() -> None:
         cn_timings.append({**time_attention(torch, fa, shape, f32),
                            "path": "ControlNet (sd3:cn1, sd3:cn2)"})
         log_attention_time(cn_timings[-1], shape, card)
-    if not cn_timings:
-        raise AssertionError(f"the ControlNet path gave flash attention no new "
-                             f"shape: {sorted(cn_flash_shapes)}")
+    # the branch's own rows are a shape the basic path never gave (7t's S5
+    # trace may have held and timed it first)
+    if not cn_flash_shapes - basic_flash:
+        raise AssertionError(f"the ControlNet path gave flash attention no "
+                             f"shape beyond the basic path's: "
+                             f"{sorted(cn_flash_shapes)}")
 
     # -------------------------- 4nq. the cn1 request under int8
     prev_mode = set_quant_mode("int8")
@@ -4515,8 +4705,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ------------- 7l. a trace through the serving launcher, S1 at full width
-    trace_shapes, trace_flash = trace_phase(torch, family, cn_weights, card,
-                                            counters)
+    trace_shapes, trace_runs = trace_phase(
+        torch, {"sd3": s1_model_set(family, cn_weights)}, card, counters)
+    trace_shapes = trace_shapes["flash"]
+    trace_flash = [run["launches"]["flash_attention"] for run in trace_runs]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4623,7 +4815,7 @@ def main() -> None:
                 "shape": lead["shape"], "other_shapes": others}
 
     lora_src = "src/repro_torch/kernels/lora_matmul/csrc/lora_matmul.cu"
-    # phase 4t's launches of a kernel by run (its trace's flash under 7t)
+    # phase 4t's launches of a kernel by run (7t's traces among them)
     def t2_launches(kernel):
         return {label: run["launches"][kernel]
                 for label, run in t2["runs"].items()
@@ -4639,7 +4831,6 @@ def main() -> None:
               + ml_timings + cn_timings + trace_timings + shard_timings
               + llm_timings,
               {"basic": launches, **t2_launches("flash_attention"),
-               "S2 trace, flags off": t2["runs"]["s2 trace"]["flash_launches"],
                "basic int8": q_flash, "lora": ml_flash,
                "controlnet": cn_flash, "controlnet int8": nq_flash,
                "S1 trace, flags off": trace_flash[0],

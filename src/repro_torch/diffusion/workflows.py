@@ -141,6 +141,13 @@ def make_lora_workflow(
     return wf_fn
 
 
+# the families each of Table 2's settings serves
+TABLE2_FAMILIES = {"s1": ("sd3",), "s2": ("sd3.5-large",),
+                   "s3": ("flux-schnell",), "s4": ("flux-dev",),
+                   "s5": ("sd3", "sd3.5-large"),
+                   "s6": ("flux-schnell", "flux-dev")}
+
+
 def table2_setting(setting: str,
                    model_sets: Optional[Dict[str, ModelSet]] = None
                    ) -> Dict[str, WorkflowTemplate]:
@@ -149,11 +156,8 @@ def table2_setting(setting: str,
     maps a family name to the ``ModelSet`` to use for it (a full-width
     family, or one carrying given weights); the others are built from
     ``FAMILIES`` as in the JAX package."""
-    singles = {"s1": ["sd3"], "s2": ["sd3.5-large"], "s3": ["flux-schnell"],
-               "s4": ["flux-dev"], "s5": ["sd3", "sd3.5-large"],
-               "s6": ["flux-schnell", "flux-dev"]}
     out: Dict[str, WorkflowTemplate] = {}
-    for f in singles[setting.lower()]:
+    for f in TABLE2_FAMILIES[setting.lower()]:
         ms = (model_sets or {}).get(f) or ModelSet(FAMILIES[f])
         for wf in (make_basic_workflow(f, ms),
                    make_controlnet_workflow(f, 1, ms),
